@@ -2,23 +2,24 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels (K1-K4, ``saguaro_tpu_torch/csrc``) from the
+Builds the port's CUDA kernels (K1-K6, ``saguaro_tpu_torch/csrc``) from the
 checkout, holds each one against its plain PyTorch twin at the feature-
 extraction path's shapes (8 sites of 1080 x 1080, 5 channels,
 max_cells=512) and times both, then drives that path end to end through
 the user-facing entry points: the full-width CPnet segmentation engine on
 8 synthetic uint16 sites, mask recovery on ground-truth flows (untrained
-weights find no cells), ``measure_site_batch`` at the slice's
-FeatureConfig, and ``run_feature_extraction_job`` on a 2-site plate. It
-fails unless every kernel was launched by that path, and prints one JSON
-line of per-kernel numbers, the card's name and power limit, and last
-``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
-package beside it, it exits non-zero and prints no result.
+weights find no cells), ``measure_site_batch`` at the reference's default
+FeatureConfig (every family on), and ``run_feature_extraction_job`` on a
+2-site plate. It fails unless every kernel was launched by that path, and
+prints one JSON line of per-kernel numbers, the card's name and power
+limit, and last ``{"ok": true, "device": {...}}``. Without a CUDA device,
+or without the package beside it, it exits non-zero and prints no result.
 
     python3 chip_smoke.py --profile
 
 also runs each stage once more, warmed up, under torch.profiler and logs
-its device-busy share and the ops with the most device time.
+its device-busy share, the ops with the most device time and, for measure,
+the host and device time of each family's ``measure/<family>`` range.
 """
 
 from __future__ import annotations
@@ -40,17 +41,13 @@ CHANNELS = ("DNA", "GFP", "ER", "Mito", "AGP")
 MAX_CELLS = 512
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 F32_OPS_PER_S = 67e12       # H100 SXM f32 outside the tensor cores
-SLICE_FAMILIES_OFF = dict(
-    measure_texture=False, measure_quantiles=False, measure_radius=False,
-    measure_convex=False, measure_neighbors=False, measure_colocalization=False,
-    measure_radial=False,
-)
 PALLAS = "saguaro_tpu/kernels/segment_pallas.py"
 # K4 tolerance: the kernel builds its lanes in f32 and sums them with f32
 # atomics in a run-dependent order; against the plain form evaluated in f64
 # each sum may be off by a few dozen ulps of its rounding scale (the
 # per-label sum of |lane|, and for the Zernike lanes of the radial terms'
-# magnitudes, see segment_cuda._lanes_c). Count lanes are exact.
+# magnitudes, see segment_cuda._lanes_c). Count lanes are exact. The
+# radial sums (K4 radial) and pass E are held the same way.
 SUM_RTOL = 1e-5
 
 
@@ -142,9 +139,11 @@ def check_kernels(images, labels, dev):
     n = h * w
     img = torch.as_tensor(images.astype(np.float32), device=dev)
     lab = torch.as_tensor(labels, device=dev)
-    out = {}
+    out, counters = {}, {}
 
-    def entry(name, source, replaces, err, fn, plain, n_bytes, n_ops, library=None, reps=10):
+    def entry(name, source, replaces, err, fn, plain, n_bytes, n_ops, library=None, reps=10,
+              counter=None):
+        counters[name] = counter or name
         t_b, by = bound(n_bytes, n_ops)
         out[name] = {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -225,7 +224,7 @@ def check_kernels(images, labels, dev):
     entry("seg_lane_sums[A]", "saguaro_tpu_torch/csrc/lane_sums.cu", f"{PALLAS}:608",
           err_a, lambda: sc.seg_lane_sums_a(*args_a), lambda: sc.lane_sums_a_plain(*args_a),
           n_bytes=b * n * (4.0 + 4.0 * n_ch + 4.0 + 1.0) + 4.0 * b * MAX_CELLS * nl_a,
-          n_ops=n_active * 2 * nl_a)
+          n_ops=n_active * 2 * nl_a, counter="seg_lane_sums_a")
 
     cnt = want[..., 0].clamp(min=1.0)
     cy, cx = want[..., 1] / cnt, want[..., 2] / cnt
@@ -245,14 +244,203 @@ def check_kernels(images, labels, dev):
     entry("seg_lane_sums[C]", "saguaro_tpu_torch/csrc/lane_sums.cu", f"{PALLAS}:608",
           err_c, lambda: sc.seg_lane_sums_c(*args_c), lambda: sc.lane_sums_c_plain(*args_c),
           n_bytes=b * n * (4.0 + 4.0 * n_ch + 1.0) + 4.0 * b * MAX_CELLS * (table_c.shape[2] + nl_c),
-          n_ops=ops_c)
-    return out
+          n_ops=ops_c, counter="seg_lane_sums_c")
+    del want, got, pw, bnd
+
+    check_family_kernels(img, lab, seg, entry)
+    return out, counters
 
 
-def slice_feature_config(**kw):
+def check_family_kernels(img, lab, seg, entry):
+    """K1 at texture's 20 code planes and at colocalization's value-keyed
+    tables, K5, K4 radial, K6 and K4 pass E on the inputs the default
+    FeatureConfig's families give them at the main path's shapes: the
+    nuclei and, for the rank pick, the three object sets (cells grown 8
+    rings over the cell-body channels)."""
+    import torch
+
+    from saguaro_tpu_torch.kernels import colocalization as coloc
+    from saguaro_tpu_torch.kernels import segment_cuda as sc
+    from saguaro_tpu_torch.kernels.glcm import glcm_pair_codes, quantize_channels
+    from saguaro_tpu_torch.kernels.morphology import expand_labels, tertiary_objects
+    from saguaro_tpu_torch.kernels.onehot_reduce import mxu_take_t
+    from saguaro_tpu_torch.kernels.radial import cp_ring_wedge
+    from saguaro_tpu_torch.kernels.shape_extra import _edt_sweep_inputs
+
+    b, h, w, n_ch = img.shape
+    n = h * w
+    dev = img.device
+    vr = img.reshape(b, n, n_ch).contiguous()
+    site = torch.arange(b, device=dev)[:, None]
+    big = 3.4e38
+    idx = seg.long()[..., None].expand(b, n, n_ch)
+    vmin = torch.full((b, MAX_CELLS, n_ch), big, device=dev).scatter_reduce_(1, idx, vr, "amin")
+    vmax = torch.full((b, MAX_CELLS, n_ch), -big, device=dev).scatter_reduce_(1, idx, vr, "amax")
+
+    # K1 at texture's shape: 5 channels x 4 directions of 136 triangular
+    # pair codes over per-object 16-level grey levels, distance 3
+    g = mxu_take_t(torch.cat([vmin, torch.clamp(vmax - vmin, min=1e-12)], dim=2), seg, MAX_CELLS)
+    q_mc = quantize_channels(img, lab, 16, (g[:, :n_ch], g[:, n_ch:]))
+    g_lab, planes = glcm_pair_codes(lab, MAX_CELLS, 16, 3, q_mc)
+    del g, q_mc
+    check_counts("seg_counts[texture]", g_lab, planes, MAX_CELLS, entry)
+    del planes, g_lab
+
+    # K5: the EDT sweep of the nuclei at the default max_radius
+    radius = 64
+    v2, d2 = (t.contiguous() for t in _edt_sweep_inputs(lab))
+    got = sc.seg_edt_sweep(v2, d2, radius)
+    torch.cuda.synchronize()
+    if not torch.equal(got, sc.edt_sweep_plain(v2, d2, radius)):
+        raise AssertionError("K5 EDT sweep differs from the plain form")
+    # per pixel: read v2 and d2, write one float; 2R candidates of a min,
+    # an add and a min
+    entry("seg_edt_sweep", "saguaro_tpu_torch/csrc/edt_sweep.cu", f"{PALLAS}:728", 0.0,
+          lambda: sc.seg_edt_sweep(v2, d2, radius), lambda: sc.edt_sweep_plain(v2, d2, radius),
+          n_bytes=12.0 * b * n, n_ops=3.0 * radius * b * n)
+    del v2, d2, got
+
+    # K4 radial: the nuclei's CP ring/wedge codes (4 rings x 8 wedges)
+    flat = lab.reshape(b, n).contiguous()
+    n_codes = 32
+    rw = cp_ring_wedge(lab, MAX_CELLS, 4, radius).reshape(b, n).to(torch.int32).contiguous()
+    args_r = (flat, rw, vr, MAX_CELLS, n_codes)
+    got = sc.seg_radial_sums(*args_r)
+    want = sc.radial_sums_plain(*args_r, dtype=torch.float64)
+    if not torch.equal(got[..., 0].double(), want[..., 0]):
+        raise AssertionError("K4 radial pixel counts differ from the plain form")
+    # the values are non-negative: each sum is its own rounding scale
+    err_r = hold_sums("K4 radial", got.reshape(b, MAX_CELLS, -1), want.reshape(b, MAX_CELLS, -1),
+                      want.abs().reshape(b, MAX_CELLS, -1))
+    raw, code = flat.long(), rw.long()
+    act = (raw > 0) & (code >= 0) & (code < n_codes)
+    r_size = b * MAX_CELLS * n_codes
+    r_key = torch.where(act, site * (MAX_CELLS * n_codes)
+                        + torch.where(raw < MAX_CELLS, raw, 0) * n_codes + code, r_size).reshape(-1)
+    r_vals = torch.cat([torch.ones((b, n, 1), device=dev), vr], dim=2).reshape(b * n, 1 + n_ch)
+    r_acc = torch.zeros((r_size + 1, 1 + n_ch), device=dev)
+    entry("seg_radial_sums", "saguaro_tpu_torch/csrc/radial_sums.cu", f"{PALLAS}:608", err_r,
+          lambda: sc.seg_radial_sums(*args_r), lambda: sc.radial_sums_plain(*args_r),
+          n_bytes=b * n * (8.0 + 4.0 * n_ch) + 4.0 * r_size * (1 + n_ch),
+          n_ops=float(act.sum()) * (1 + n_ch),
+          library=lambda: r_acc.index_add_(0, r_key, r_vals))
+    del got, want, rw, r_key, r_vals, r_acc, act, raw, code
+
+    # K6: dense-rank tables of the three object sets, as colocalization
+    # builds them (uint16 codes split into bytes, Cells = Nuclei + Cytoplasm)
+    body = img[..., 1:].mean(dim=-1)
+    cells = expand_labels(lab, body, 200.0, iterations=8)
+    sets = {"Cells": cells, "Nuclei": lab, "Cytoplasm": tertiary_objects(cells, lab)}
+    flats = {k: v.reshape(b, n).to(torch.int32).contiguous() for k, v in sets.items()}
+    insides = {k: f > 0 for k, f in flats.items()}
+    codes16, norm = coloc._intensity_codes(vr, insides["Cells"] | insides["Nuclei"], True)
+    hi, lo = (codes16 >> 8).contiguous(), (codes16 & 0xFF).contiguous()
+    cnt = coloc._value_count_tables(hi, lo, [insides["Nuclei"], insides["Cytoplasm"]])
+    cnt_by = {"Nuclei": cnt[..., 0], "Cytoplasm": cnt[..., 1]}
+    cnt_by["Cells"] = cnt_by["Nuclei"] + cnt_by["Cytoplasm"]
+    tabs, n_distinct = [], {}
+    for c in range(n_ch):
+        per_set = []
+        for nm in sets:
+            t, nd = coloc._rank_table(cnt_by[nm][:, c])
+            per_set.append(t)
+            n_distinct.setdefault(nm, []).append(nd)
+        tabs.append(torch.stack(per_set, dim=-1))
+    tables = torch.stack(tabs, dim=1).contiguous()  # (B, C, 256, 256, 3)
+    del cnt, cnt_by, tabs, codes16
+    ranks_all = sc.seg_pick2(hi, lo, tables)
+    torch.cuda.synchronize()
+    if not torch.equal(ranks_all, sc.pick2_plain(hi, lo, tables)):
+        raise AssertionError("K6 rank pick differs from the plain form")
+    check_counts_by_value(hi, lo, vr / norm[:, None, None], insides,
+                          lambda *a: check_counts(*a, entry))
+    k_sets = tables.shape[4]
+    flat_t = tables.view(b, n_ch, 65536, k_sets)
+    p_idx = hi.long() * 256 + lo.long()
+    chan = torch.arange(n_ch, device=dev)[None, None, :]
+    entry("seg_pick2", "saguaro_tpu_torch/csrc/pick2.cu", f"{PALLAS}:824", 0.0,
+          lambda: sc.seg_pick2(hi, lo, tables), lambda: sc.pick2_plain(hi, lo, tables),
+          n_bytes=b * n * n_ch * (8.0 + 4.0 * k_sets) + 4.0 * tables.numel(), n_ops=0.0,
+          library=lambda: flat_t[site[:, :, None], chan, p_idx])
+    del p_idx, flat_t, hi, lo
+
+    # K4 pass E over the nuclei: their ranks from K6, Manders thresholds at
+    # 15 % of each object's channel maximum, Costes thresholds of the descent
+    pairs = coloc._pairs(n_ch)
+    ranks = ranks_all[..., 1].contiguous()
+    del ranks_all
+    thr_f, thr_s = coloc.costes_thresholds(vr / norm[:, None, None], insides["Nuclei"], pairs)
+    nd = n_distinct["Nuclei"]
+    inv_r = torch.stack([1.0 / torch.clamp(torch.maximum(nd[a], nd[c]), min=1.0)
+                         for a, c in pairs], dim=1)
+    tff = (0.15 * torch.where(vmax.abs() < 3.38e38, vmax, torch.zeros_like(vmax))).contiguous()
+    consts = torch.stack([thr_f * norm[:, None], thr_s * norm[:, None], inv_r],
+                         dim=1).float().contiguous()
+    args_e = (flats["Nuclei"], vr, ranks, tff, consts, MAX_CELLS)
+    got = sc.seg_lane_sums_e(*args_e)
+    err_e = hold_sums("K4 pass E", got, sc.lane_sums_e_plain(*args_e, dtype=torch.float64),
+                      sc.lane_sums_e_plain(*args_e, magnitude=True, dtype=torch.float64))
+    nl_e = sc.n_lanes_e(n_ch)
+    # per labelled pixel: build and add each lane, the rank weight and the
+    # threshold tests of each pair
+    entry("seg_lane_sums[E]", "saguaro_tpu_torch/csrc/lane_sums.cu", f"{PALLAS}:608", err_e,
+          lambda: sc.seg_lane_sums_e(*args_e), lambda: sc.lane_sums_e_plain(*args_e),
+          n_bytes=b * n * (4.0 + 8.0 * n_ch) + 4.0 * b * MAX_CELLS * (n_ch + nl_e),
+          n_ops=float(insides["Nuclei"].sum()) * (2 * nl_e + 6 * len(pairs) + n_ch),
+          counter="seg_lane_sums_e")
+
+
+def check_counts(name, labels, planes, n_labels, entry):
+    """K1 on one ``onehot_counts`` call's inputs (labels (B, N), [(code
+    (B, N), valid (B, N), n_codes), ...]): exactly against the plain form,
+    timed beside one ``torch.bincount`` over every plane's keys."""
+    import torch
+
+    from saguaro_tpu_torch.kernels import segment_cuda as sc
+
+    lab = labels.to(torch.int32).contiguous()
+    codes = torch.stack([torch.where(v, c.to(torch.int32), -1) for c, v, _ in planes],
+                        dim=1).contiguous()
+    sizes = tuple(nc for _, _, nc in planes)
+    got = sc.seg_counts(lab, codes, sizes, n_labels)
+    torch.cuda.synchronize()
+    if not torch.equal(got, sc.counts_plain(lab, codes, sizes, n_labels)):
+        raise AssertionError(f"K1 {name} differs from the plain form")
+    b, n_q, n = codes.shape
+    total = sum(sizes)
+    size = b * n_labels * total
+    site = torch.arange(b, device=lab.device)[:, None, None]
+    offs = torch.tensor(np.cumsum((0,) + sizes[:-1]), device=lab.device)[None, :, None]
+    keys = torch.where(codes >= 0, site * (n_labels * total) + lab.long()[:, None, :] * total
+                       + offs + codes, size).reshape(-1)
+    entry(name, "saguaro_tpu_torch/csrc/counts.cu", f"{PALLAS}:252", 0.0,
+          lambda: sc.seg_counts(lab, codes, sizes, n_labels),
+          lambda: sc.counts_plain(lab, codes, sizes, n_labels),
+          n_bytes=4.0 * b * n * (1 + n_q) + 4.0 * size, n_ops=float(b * n * n_q),
+          library=lambda: torch.bincount(keys, minlength=size + 1), counter="seg_counts")
+
+
+def check_counts_by_value(hi, lo, vn, insides, check):
+    """K1 keyed by intensity instead of object label, as colocalization
+    uses it: the first channel's (hi byte, lo byte) value counts over the
+    nuclei and cytoplasm (256 "labels" x 512 columns), and the Costes joint
+    tables of the first channel against the four others over the same two
+    sets (256 x 2048). Neither key is spatially coherent, and both tables
+    exceed shared memory, so both take the kernel's global-memory path."""
+    import torch
+
+    masks = [insides["Nuclei"], insides["Cytoplasm"]]
+    code_s = torch.clamp((vn * 255).to(torch.int32), 0, 255)
+    check("seg_counts[rank values]", hi[:, :, 0], [(lo[:, :, 0], m, 256) for m in masks], 256)
+    check("seg_counts[costes joint]", code_s[:, :, 0],
+          [(code_s[:, :, c], m, 256) for c in range(1, vn.shape[2]) for m in masks], 256)
+
+
+def feature_config(**kw):
+    """The reference's default FeatureConfig: every family on."""
     from saguaro_tpu_torch.pipeline.features import FeatureConfig
 
-    return FeatureConfig(**{"channels": CHANNELS, "max_cells": MAX_CELLS, **SLICE_FAMILIES_OFF, **kw})
+    return FeatureConfig(**{"channels": CHANNELS, "max_cells": MAX_CELLS, **kw})
 
 
 def run_main_path(images, gt_labels, device, engine_cfg=None):
@@ -281,7 +469,7 @@ def run_main_path(images, gt_labels, device, engine_cfg=None):
     rec = compute_masks_batch(flows, prob, device=device)
     t_rec = (time.perf_counter() - t0) / b
     t0 = time.perf_counter()
-    tables = measure_site_batch(images, np.stack(rec), slice_feature_config(), device=device)
+    tables = measure_site_batch(images, np.stack(rec), feature_config(), device=device)
     t_meas = (time.perf_counter() - t0) / b
     return tables, rec, {"segment": t_seg, "recover": t_rec, "measure": t_meas}
 
@@ -328,7 +516,7 @@ def check_small_against_cpu(dev):
     images, labels = synthetic_sites(2, 200, seed=5)
     from saguaro_tpu_torch.pipeline.features import measure_site_batch
 
-    cfg = slice_feature_config(max_cells=64)
+    cfg = feature_config(max_cells=64)
     on_card = measure_site_batch(images, labels, cfg, device=dev)
     on_cpu = measure_site_batch(images, labels, cfg, device="cpu")
     worst = 0.0
@@ -377,7 +565,7 @@ def run_job(images, labels, dev):
             order = iter(r["Metadata_Well"] for r in rows)
             written = run_feature_extraction_job(
                 pd.DataFrame(rows), root, os.path.join(root, "out"), list(CHANNELS),
-                lambda image: masks[next(order)], feature_cfg=slice_feature_config(), device=dev,
+                lambda image: masks[next(order)], feature_cfg=feature_config(), device=dev,
             )
             tables = {k: pd.read_csv(v) for k, v in written.items()}
     finally:
@@ -410,7 +598,7 @@ def profile_stages(images, gt_labels, dev, top: int = 20) -> None:
     stages = {
         "segment": lambda: engine.segment_batch(images),
         "recover": lambda: compute_masks_batch(flows, prob, device=dev),
-        "measure": lambda: measure_site_batch(images, gt_labels, slice_feature_config(), device=dev),
+        "measure": lambda: measure_site_batch(images, gt_labels, feature_config(), device=dev),
     }
     for name, fn in stages.items():
         fn()
@@ -425,16 +613,42 @@ def profile_stages(images, gt_labels, dev, top: int = 20) -> None:
             torch.cuda.synchronize()
             traced = time.perf_counter() - t0
         events = prof.key_averages()
-        kernels = [e for e in events if e.device_type == DeviceType.CUDA]
+        # the measure/<family> ranges appear twice: as host events and as
+        # device-timeline annotations, which are not kernels
+        spans = [e for e in events if e.key.startswith("measure/")]
+        kernels = [e for e in events
+                   if e.device_type == DeviceType.CUDA and not e.key.startswith("measure/")]
         busy = sum(e.self_device_time_total for e in kernels) / 1e6
         n_launch = sum(e.count for e in kernels)
         log(f"profile {name}: {alone:.4f} s alone, {traced:.4f} s traced for {len(images)} sites; "
             f"device busy {busy:.4f} s ({100 * busy / traced:.1f} % of traced), "
             f"{n_launch} kernel launches")
         ops = [e for e in events if e.device_type == DeviceType.CPU]
+        # the port's own kernels (csrc/*.cu) in this stage
+        for e in sorted((e for e in kernels if "sag_" in e.key),
+                        key=lambda e: e.device_time_total, reverse=True):
+            log(f"  kernel {e.device_time_total / 1e3:10.3f} ms dev  {e.count:6d} launches  {e.key[:80]}")
         for e in sorted(ops, key=lambda e: e.self_device_time_total, reverse=True)[:top]:
             log(f"  {e.self_device_time_total / 1e3:10.3f} ms dev  {e.count:6d} calls  "
                 f"{e.self_cpu_time_total / 1e3:10.3f} ms cpu  {e.key[:90]}")
+        # the measure stage's family ranges: host time (inclusive of the
+        # syncs inside), device time of the kernels launched within, and the
+        # range's extent on the device timeline
+        extent = {e.key: e.device_time_total for e in spans if e.device_type == DeviceType.CUDA}
+        host = [e for e in spans if e.device_type == DeviceType.CPU]
+
+        def n_kernels(ev):
+            return len(ev.kernels) + sum(n_kernels(c) for c in ev.cpu_children)
+
+        launched: dict[str, int] = {}
+        for ev in prof.events():
+            if ev.name.startswith("measure/") and ev.device_type == DeviceType.CPU:
+                launched[ev.name] = launched.get(ev.name, 0) + n_kernels(ev)
+        for e in sorted(host, key=lambda e: e.cpu_time_total, reverse=True):
+            log(f"  range {e.key:24s} {e.count:3d} calls  {e.cpu_time_total / 1e3:10.3f} ms host  "
+                f"{e.device_time_total / 1e3:10.3f} ms kernels  "
+                f"{extent.get(e.key, 0.0) / 1e3:10.3f} ms device extent  "
+                f"{launched.get(e.key, 0):7d} launches")
 
 
 def main() -> int:
@@ -451,6 +665,7 @@ def main() -> int:
     except ImportError as e:
         print(f"chip_smoke: the saguaro_tpu_torch package is missing ({e})", file=sys.stderr)
         return 2
+    t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     smi = subprocess.run(
@@ -470,7 +685,7 @@ def main() -> int:
     images, gt = synthetic_sites(N_SITES, SIZE, seed=0)
     n_cells = int(gt[0].max())
     log(f"{N_SITES} sites {SIZE}x{SIZE}x{len(CHANNELS)}, {n_cells} cells/site")
-    kernels = check_kernels(images, gt, dev)
+    kernels, counters = check_kernels(images, gt, dev)
 
     check_small_against_cpu(dev)
 
@@ -481,11 +696,11 @@ def main() -> int:
     log(f"main path launches {launches}; s/site " + ", ".join(f"{k} {v:.4f}" for k, v in secs.items()))
     check_recovery(rec, gt)
     check_tables(tables, n_cells)
+    missing = [k for k, v in launches.items() if v < 1]
+    if missing:
+        raise AssertionError(f"the main path did not launch {missing}")
     for name, entry in kernels.items():
-        key = name.replace("seg_lane_sums[A]", "seg_lane_sums_a").replace("seg_lane_sums[C]", "seg_lane_sums_c")
-        entry["launches"] = launches[key]
-        if entry["launches"] < 1:
-            raise AssertionError(f"{name} was not launched by the main path")
+        entry["launches"] = launches[counters[name]]
 
     sc.reset_launch_counts()
     run_job(images, gt, dev)
@@ -495,6 +710,7 @@ def main() -> int:
     log("stage seconds per site " + json.dumps(secs))
     if "--profile" in sys.argv[1:]:
         profile_stages(images, gt, dev)
+    log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": list(kernels.values())}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

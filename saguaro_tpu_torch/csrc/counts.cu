@@ -15,10 +15,12 @@
 // count), and the block adds its non-zero bins to the global histogram with
 // integer atomics. Integer sums are exact and order-free, so the result is
 // deterministic. A histogram too large for shared memory counts straight
-// into global memory with the same warp merge.
+// into global memory with the same warp merge (the measurement's GLCM,
+// neighbour, value-count and Costes joint tables take this path). The plan
+// of column offsets and sizes is read from global memory (it stays in L1),
+// so a call takes any number of code planes.
 #include "common.cuh"
 
-#define SAG_MAX_PLANES 16
 #define SAG_COUNTS_SMEM (200 * 1024)
 
 __global__ void __launch_bounds__(SAG_THREADS)
@@ -26,13 +28,7 @@ sag_counts_kernel(const int* __restrict__ labels, const int* __restrict__ codes,
                   const int* __restrict__ plan, int* __restrict__ out,
                   long long n, int q_planes, int mc, int total, int shared_hist) {
   extern __shared__ int hist_sh[];
-  __shared__ int offs[SAG_MAX_PLANES];
-  __shared__ int sizes[SAG_MAX_PLANES];
   const int b = blockIdx.z;
-  if (threadIdx.x < q_planes) {
-    offs[threadIdx.x] = plan[threadIdx.x];
-    sizes[threadIdx.x] = plan[q_planes + threadIdx.x];
-  }
   int* out_site = out + (size_t)b * mc * total;
   int* h = shared_hist ? hist_sh : out_site;
   if (shared_hist) {
@@ -50,7 +46,8 @@ sag_counts_kernel(const int* __restrict__ labels, const int* __restrict__ codes,
     bool lab_ok = in && lab >= 0 && lab < mc;
     for (int q = 0; q < q_planes; ++q) {
       int code = in ? code_site[(size_t)q * n + i] : -1;
-      int key = (lab_ok && code >= 0 && code < sizes[q]) ? lab * total + offs[q] + code : -1;
+      const int size_q = __ldg(plan + q_planes + q);
+      int key = (lab_ok && code >= 0 && code < size_q) ? lab * total + __ldg(plan + q) + code : -1;
       unsigned peers = __match_any_sync(SAG_FULL_MASK, key);
       int leader = __ffs(peers) - 1;
       if (key >= 0 && (int)(threadIdx.x & 31) == leader) atomicAdd(h + key, __popc(peers));
@@ -70,7 +67,7 @@ sag_counts_kernel(const int* __restrict__ labels, const int* __restrict__ codes,
 extern "C" int sag_counts(const int* labels, const int* codes, const int* plan,
                           int* out, int batch, long long n, int q_planes, int mc,
                           int total, void* stream) {
-  if (q_planes < 1 || q_planes > SAG_MAX_PLANES) return (int)cudaErrorInvalidValue;
+  if (q_planes < 1) return (int)cudaErrorInvalidValue;
   size_t hist_bytes = (size_t)mc * total * sizeof(int);
   int shared_hist = hist_bytes <= SAG_COUNTS_SMEM;
   size_t smem = shared_hist ? hist_bytes : 0;

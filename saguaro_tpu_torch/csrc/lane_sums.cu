@@ -4,7 +4,9 @@
 // (kernel _lane_sums_fn) with the lane functions of
 // saguaro_tpu/kernels/fused_measure.py: pass A (_make_lanes_a_fn_t, the
 // linear sums) and pass C (_make_lanes_c_fn_t, centred and bbox moment
-// products, Zernike re/im, centred intensity quadratics, edge quadratics).
+// products, Zernike re/im, centred intensity quadratics, edge quadratics),
+// and of saguaro_tpu/kernels/colocalization.py: pass E
+// (_make_lanes_e_fn_t, the Manders / RWC / Costes thresholded sums).
 //
 // out[b, lab, l] = sum over pixels i of site b with slot(i) == lab of
 // lane_l(i), where slot(i) = label if 0 < label < mc else 0 (overflow labels
@@ -30,11 +32,16 @@
 // groups of equal width (grid.x): each block rebuilds all lanes of its
 // pixels and keeps only its group; the rebuild is cheap arithmetic, and
 // neighbouring blocks of a pixel chunk read the same pixels through L2.
+// Pass E (C + 8P lanes, 85 at 5 channels and 10 pairs) reads a pixel's
+// label, channels and dense ranks (44 B at 5 channels) and a per-label
+// Manders threshold row; its 512 x 85 accumulator (174 KB) fits one block,
+// so it runs as one lane group with a larger shared budget.
 // Float atomics make the summation order vary between runs.
 #include "common.cuh"
 
 #define SAG_MAX_CH 8
 #define SAG_LANES_SMEM (96 * 1024)
+#define SAG_LANES_E_SMEM (200 * 1024)
 
 struct SagPixel {
   float y, x, in, bnd;
@@ -47,7 +54,7 @@ __device__ __forceinline__ void sag_load_pixel(SagPixel& p, const float* image_s
   p.y = (float)(i / w);
   p.x = (float)(i - (i / w) * w);
   p.in = act ? 1.0f : 0.0f;
-  p.bnd = act && border_site[i] ? 1.0f : 0.0f;
+  p.bnd = act && border_site != nullptr && border_site[i] ? 1.0f : 0.0f;
 #pragma unroll
   for (int c = 0; c < SAG_MAX_CH; ++c) {
     p.vr[c] = (act && c < n_ch) ? image_site[(size_t)i * n_ch + c] : 0.0f;
@@ -188,12 +195,57 @@ __device__ __forceinline__ void sag_lanes_c(SagAcc& acc, const SagPixel& p,
   }
 }
 
-// One kernel for both passes: PASS 0 = A, 1 = C.
+// pass E: [vr*above (C), Manders vr_a*cmb, vr_b*cmb per pair, RWC
+// vr_a*w*cmb, vr_b*w*cmb per pair, Costes vr_a*cc, vr_b*cc, vr_a*ca, vr_b*cb
+// per pair] with above = vr > tff (the label's Manders threshold row),
+// cmb = above_a*above_b, w = 1 - |rank_a - rank_b| * inv_r, ca = vr_a >
+// thr_f, cb = vr_b > thr_s, cc = ca*cb; cst = (thr_f (P), thr_s (P),
+// inv_r (P)) of the site.
+__device__ __forceinline__ void sag_lanes_e(SagAcc& acc, const SagPixel& p,
+                                            const float* __restrict__ row,
+                                            const float* __restrict__ rk,
+                                            const float* __restrict__ cst, int n_ch,
+                                            int n_pairs) {
+  float above[SAG_MAX_CH];
+#pragma unroll
+  for (int c = 0; c < SAG_MAX_CH; ++c)
+    above[c] = (c < n_ch && p.vr[c] > sag_clean(__ldg(row + c))) ? p.in : 0.0f;
+#pragma unroll
+  for (int c = 0; c < SAG_MAX_CH; ++c)
+    if (c < n_ch) acc.add(c, p.vr[c] * above[c]);
+  const int o_mand = n_ch, o_rwc = n_ch + 2 * n_pairs, o_cot = n_ch + 4 * n_pairs;
+  int q = 0;
+#pragma unroll
+  for (int a = 0; a < SAG_MAX_CH; ++a) {
+#pragma unroll
+    for (int bb = a + 1; bb < SAG_MAX_CH; ++bb) {
+      if (bb < n_ch) {
+        const float cmb = above[a] * above[bb];
+        acc.add(o_mand + 2 * q, p.vr[a] * cmb);
+        acc.add(o_mand + 2 * q + 1, p.vr[bb] * cmb);
+        const float wr = 1.0f - fabsf(rk[a] - rk[bb]) * __ldg(cst + 2 * n_pairs + q);
+        acc.add(o_rwc + 2 * q, p.vr[a] * wr * cmb);
+        acc.add(o_rwc + 2 * q + 1, p.vr[bb] * wr * cmb);
+        const float ca = p.vr[a] > __ldg(cst + q) ? p.in : 0.0f;
+        const float cb = p.vr[bb] > __ldg(cst + n_pairs + q) ? p.in : 0.0f;
+        const float cc = ca * cb;
+        acc.add(o_cot + 4 * q, p.vr[a] * cc);
+        acc.add(o_cot + 4 * q + 1, p.vr[bb] * cc);
+        acc.add(o_cot + 4 * q + 2, p.vr[a] * ca);
+        acc.add(o_cot + 4 * q + 3, p.vr[bb] * cb);
+        ++q;
+      }
+    }
+  }
+}
+
+// One kernel for the three passes: PASS 0 = A, 1 = C, 2 = E.
 template <int PASS, bool WITH_MOMENTS, bool WITH_ZERNIKE, bool WITH_EDGE>
 __global__ void __launch_bounds__(SAG_THREADS)
 sag_lanes_kernel(const int* __restrict__ labels, const float* __restrict__ image,
                  const float* __restrict__ pweight, const uint8_t* __restrict__ border,
                  const float* __restrict__ table, int k_tab, const float* __restrict__ zcoef,
+                 const float* __restrict__ ranks, const float* __restrict__ consts, int n_pairs,
                  float* __restrict__ out, long long n, int w, int n_ch, int mc, int n_lanes,
                  int group) {
   extern __shared__ float acc_sh[];
@@ -210,7 +262,7 @@ sag_lanes_kernel(const int* __restrict__ labels, const float* __restrict__ image
   acc.g1 = g1;
   const int* lab_site = labels + (size_t)b * n;
   const float* image_site = image + (size_t)b * n * n_ch;
-  const uint8_t* border_site = border + (size_t)b * n;
+  const uint8_t* border_site = PASS == 2 ? nullptr : border + (size_t)b * n;
   const long long stride = (long long)gridDim.y * blockDim.x;
   for (long long start = (long long)blockIdx.y * blockDim.x; start < n; start += stride) {
     const long long i = start + threadIdx.x;
@@ -224,9 +276,16 @@ sag_lanes_kernel(const int* __restrict__ labels, const float* __restrict__ image
     if (PASS == 0) {
       const float pw = act ? pweight[(size_t)b * n + i] : 0.0f;
       sag_lanes_a<WITH_EDGE>(acc, p, pw, n_ch);
-    } else {
+    } else if (PASS == 1) {
       const float* row = table + ((size_t)b * mc + lab) * k_tab;
       sag_lanes_c<WITH_MOMENTS, WITH_ZERNIKE, WITH_EDGE>(acc, p, row, zcoef, n_ch);
+    } else {
+      const float* row = table + ((size_t)b * mc + lab) * k_tab;
+      float rk[SAG_MAX_CH];
+      const float* rk_px = ranks + ((size_t)b * n + (act ? i : 0)) * n_ch;
+#pragma unroll
+      for (int c = 0; c < SAG_MAX_CH; ++c) rk[c] = (act && c < n_ch) ? rk_px[c] : 0.0f;
+      sag_lanes_e(acc, p, row, rk, consts + (size_t)b * 3 * n_pairs, n_ch, n_pairs);
     }
   }
   __syncthreads();
@@ -236,9 +295,10 @@ sag_lanes_kernel(const int* __restrict__ labels, const float* __restrict__ image
 template <int PASS, bool M, bool Z, bool E>
 static int sag_launch_lanes(const int* labels, const float* image, const float* pweight,
                             const uint8_t* border, const float* table, int k_tab,
-                            const float* zcoef, float* out, int batch, long long n, int w,
-                            int n_ch, int mc, int n_lanes, cudaStream_t stream) {
-  int group = sag_group_width(n_lanes, mc, SAG_LANES_SMEM);
+                            const float* zcoef, const float* ranks, const float* consts,
+                            int n_pairs, float* out, int batch, long long n, int w, int n_ch,
+                            int mc, int n_lanes, int budget, cudaStream_t stream) {
+  int group = sag_group_width(n_lanes, mc, budget);
   if (group == 0) return (int)cudaErrorInvalidValue;
   int n_groups = (n_lanes + group - 1) / group;
   size_t smem = (size_t)group * mc * sizeof(float);
@@ -250,8 +310,8 @@ static int sag_launch_lanes(const int* labels, const float* image, const float* 
   }
   dim3 grid(n_groups, sag_chunks(n, batch * n_groups), batch);
   sag_lanes_kernel<PASS, M, Z, E><<<grid, SAG_THREADS, smem, stream>>>(
-      labels, image, pweight, border, table, k_tab, zcoef, out, n, w, n_ch, mc, n_lanes,
-      group);
+      labels, image, pweight, border, table, k_tab, zcoef, ranks, consts, n_pairs, out, n, w,
+      n_ch, mc, n_lanes, group);
   return sag_status();
 }
 
@@ -265,11 +325,11 @@ extern "C" int sag_lanes_a(const int* labels, const float* image, const float* p
   cudaStream_t s = (cudaStream_t)stream;
   if (with_edge)
     return sag_launch_lanes<0, false, false, true>(labels, image, pweight, border, nullptr,
-                                                   0, nullptr, out, batch, n, w, n_ch, mc,
-                                                   n_lanes, s);
+                                                   0, nullptr, nullptr, nullptr, 0, out, batch,
+                                                   n, w, n_ch, mc, n_lanes, SAG_LANES_SMEM, s);
   return sag_launch_lanes<0, false, false, false>(labels, image, pweight, border, nullptr, 0,
-                                                  nullptr, out, batch, n, w, n_ch, mc,
-                                                  n_lanes, s);
+                                                  nullptr, nullptr, nullptr, 0, out, batch, n,
+                                                  w, n_ch, mc, n_lanes, SAG_LANES_SMEM, s);
 }
 
 // Pass C. table (B, mc, k_tab) f32; zcoef (30, 10) f32 radial coefficients.
@@ -284,7 +344,8 @@ extern "C" int sag_lanes_c(const int* labels, const float* image, const uint8_t*
 #define SAG_C_CASE(F, M, Z, E)                                                          \
   case F:                                                                               \
     return sag_launch_lanes<1, M, Z, E>(labels, image, nullptr, border, table, k_tab,   \
-                                        zcoef, out, batch, n, w, n_ch, mc, n_lanes, s);
+                                        zcoef, nullptr, nullptr, 0, out, batch, n, w, n_ch, \
+                                        mc, n_lanes, SAG_LANES_SMEM, s);
   switch (flags) {
     SAG_C_CASE(0, false, false, false)
     SAG_C_CASE(1, false, false, true)
@@ -297,4 +358,18 @@ extern "C" int sag_lanes_c(const int* labels, const float* image, const uint8_t*
   }
 #undef SAG_C_CASE
   return (int)cudaErrorInvalidValue;
+}
+
+// Pass E. labels (B, h*w) int32 raw; image (B, h*w, C) f32; ranks (B, h*w, C)
+// f32 dense ranks of this object set; tff (B, mc, C) f32 per-label Manders
+// thresholds; consts (B, 3, n_pairs) f32 = (Costes thr_f, thr_s, 1/R) in raw
+// units per site; out (B, mc, C + 8 * n_pairs) f32 zero-filled.
+extern "C" int sag_lanes_e(const int* labels, const float* image, const float* ranks,
+                           const float* tff, const float* consts, float* out, int batch,
+                           long long n, int n_ch, int mc, int n_pairs, void* stream) {
+  if (n_ch < 2 || n_ch > SAG_MAX_CH || n_pairs != n_ch * (n_ch - 1) / 2)
+    return (int)cudaErrorInvalidValue;
+  return sag_launch_lanes<2, false, false, false>(
+      labels, image, nullptr, nullptr, tff, n_ch, nullptr, ranks, consts, n_pairs, out, batch,
+      n, 1, n_ch, mc, n_ch + 8 * n_pairs, SAG_LANES_E_SMEM, (cudaStream_t)stream);
 }

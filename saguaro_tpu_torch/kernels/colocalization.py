@@ -1,0 +1,393 @@
+"""Per-object thresholded colocalization, CP 4.2.8 MeasureColocalization
+(port of ``saguaro_tpu/kernels/colocalization.py``).
+
+Correlation, Slope, Overlap and K ride the fused lane scans
+(``fused_measure``); this module supplies the thresholded families:
+
+  Manders M1/M2   per-object thresholds at ``thr_pct`` % of each channel's
+                  maximum, sums over the pixels above both
+  RWC             the Manders sums weighted by (R - |rank_a - rank_b|) / R,
+                  rank_* the dense ranks of the pixel values over the object
+                  set's pixels, R = the larger count of distinct values
+  Costes C1/C2    image-wide thresholds from CP's linear_costes descent on
+                  the 1/costes_scale grid, then per-object masked sums
+
+Dense ranks come from a (256, 256) count table of each channel's 16-bit
+codes split into (hi, lo) bytes (K1 with the hi byte as the "label"), turned
+into a rank table by exclusive cumsums and picked per pixel (K6). The
+Costes descent reads per-pair joint count tables (K1) through suffix sums;
+the Pearson statistic of every grid step is evaluated at once on the device
+and CP's stepping walks that vector on the host. The masked per-object sums
+of all three families are one lane scan per object set (K4 pass E).
+
+The second-level Costes refinement (``costes_fine_scale``) is not ported:
+a config that sets it raises ``NotImplementedError``.
+
+Every function takes a leading site-batch dimension: image (B, H, W, C),
+labels (B, H, W); per-object outputs (B, max_cells).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from saguaro_tpu_torch.kernels import segment_cuda as sc
+from saguaro_tpu_torch.kernels.onehot_reduce import onehot_counts
+from saguaro_tpu_torch.kernels.segment_cuda import _pairs
+
+__all__ = [
+    "costes_thresholds",
+    "coloc_threshold_sums",
+    "colocalization_features",
+    "colocalization_features_multiset",
+]
+
+_BIG = 3.4e38
+
+
+def _exclusive_cumsum(x: torch.Tensor, dim: int) -> torch.Tensor:
+    return torch.cumsum(x, dim=dim) - x
+
+
+def _pick_rows_mc(hi: torch.Tensor, lo: torch.Tensor, tables: torch.Tensor) -> torch.Tensor:
+    """Per-pixel two-level table pick: hi, lo (B, N, C) byte codes + tables
+    (B, C, 256, 256, K) -> (B, N, C, K), ``tables[b, c, hi, lo, k]``. K6 on
+    CUDA."""
+    hi = hi.to(torch.int32).contiguous()
+    lo = lo.to(torch.int32).contiguous()
+    tables = tables.float().contiguous()
+    if hi.is_cuda:
+        return sc.seg_pick2(hi, lo, tables)
+    return sc.pick2_plain(hi, lo, tables)
+
+
+def _rank_table(cnt2: torch.Tensor):
+    """(B, 256, 256) value-count tables -> (dense-rank tables (B, 256, 256),
+    distinct values (B,)): rank[v] = number of distinct present values < v."""
+    presence = (cnt2 > 0).float()
+    lo_excl = _exclusive_cumsum(presence, 2)
+    row_tot = presence.sum(dim=2)
+    hi_off = _exclusive_cumsum(row_tot, 1)
+    return hi_off[:, :, None] + lo_excl, presence.sum(dim=(1, 2))
+
+
+def _value_count_tables(hi: torch.Tensor, lo: torch.Tensor, insides: list) -> torch.Tensor:
+    """Per (channel, mask) (hi, lo) byte-count tables: hi, lo (B, N, C),
+    insides M masks (B, N) -> (B, C, 256, 256, M)."""
+    out = []
+    for c in range(hi.shape[2]):
+        cnts = onehot_counts(hi[:, :, c], [(lo[:, :, c], m, 256) for m in insides], 256)
+        out.append(torch.stack(cnts, dim=-1))
+    return torch.stack(out, dim=1)
+
+
+def _suffix2(table: torch.Tensor) -> torch.Tensor:
+    """S[b, i, j] = sum_{a >= i, c >= j} table[b, a, c], padded with a zero
+    row and column."""
+    s = torch.flip(torch.cumsum(torch.flip(table, (1,)), dim=1), (1,))
+    s = torch.flip(torch.cumsum(torch.flip(s, (2,)), dim=2), (2,))
+    return torch.nn.functional.pad(s, (0, 1, 0, 1))
+
+
+def _joint_tables(code_s, pairs, insides, s_codes):
+    """Per-pair (code_a, code_b) count tables for each mask, fused by leading
+    channel: code_s (B, N, C) -> [{(a, b): (B, S, S)} per mask]."""
+    by_a: dict[int, list[int]] = {}
+    for a, b in pairs:
+        by_a.setdefault(a, []).append(b)
+    joint = [{} for _ in insides]
+    for a, bs in by_a.items():
+        outs = onehot_counts(
+            code_s[:, :, a], [(code_s[:, :, b], m, s_codes) for b in bs for m in insides], s_codes
+        )
+        i = 0
+        for b in bs:
+            for t in joint:
+                t[(a, b)] = outs[i]
+                i += 1
+    return joint
+
+
+def costes_thresholds(
+    values: torch.Tensor,
+    inside: torch.Tensor,
+    pairs: tuple[tuple[int, int], ...],
+    scale: int = 255,
+    fast: bool = True,
+    joint: dict | None = None,
+):
+    """CP 4.2.8 linear_costes for every channel pair and site.
+
+    values (B, N, C) normalized to CP's [0, 1]; inside (B, N) bool ->
+    (thr_f (B, P), thr_s (B, P)) in the same units. Thresholds step on the
+    1/scale grid as CP's descent does; the region moments of each step come
+    from suffix sums of the joint count tables (exact for values on the
+    grid, bin floors otherwise). The statistic is evaluated exactly, from
+    int64 moments of the grid codes, so its sign, which stops the descent,
+    is exact where f32 sums could round a near-zero or constant-input
+    statistic either way."""
+    b = values.shape[0]
+    dev = values.device
+    s_codes = scale + 1
+    if joint is None:
+        code = torch.clamp((values * scale).to(torch.int32), 0, scale)
+        (joint,) = _joint_tables(code, pairs, [inside], s_codes)
+    insf = inside.float()
+    i_step = 1.0 / scale
+    # region moments in integer grid codes: Pearson is scale-free, and the
+    # int64 sums are exact (n * sum(code**2) < 2**63 up to ~5M pixels a site)
+    kk = torch.arange(s_codes, dtype=torch.int64, device=dev)
+    ka, kb = kk[:, None], kk[None, :]
+
+    sufs, regs, maxes = [], [], []
+    for a, c in pairs:
+        cnt2 = joint[(a, c)].to(torch.int64)
+        sufs.append(torch.stack([
+            _suffix2(cnt2), _suffix2(cnt2 * ka), _suffix2(cnt2 * kb),
+            _suffix2(cnt2 * ka * ka), _suffix2(cnt2 * kb * kb), _suffix2(cnt2 * ka * kb),
+        ], dim=1))  # (B, 6, S+1, S+1)
+        # the orthogonal regression line over pixels where either channel > 0
+        fa, fb = values[..., a], values[..., c]
+        nz = insf * ((fa > 0) | (fb > 0)).float()
+        m = torch.clamp(nz.sum(dim=1), min=1.0)
+        xm = (fa * nz).sum(dim=1) / m
+        ym = (fb * nz).sum(dim=1) / m
+        dd = torch.clamp(m - 1.0, min=1.0)
+        xvar = ((fa - xm[:, None]) ** 2 * nz).sum(dim=1) / dd
+        yvar = ((fb - ym[:, None]) ** 2 * nz).sum(dim=1) / dd
+        zm = xm + ym
+        zvar = ((fa + fb - zm[:, None]) ** 2 * nz).sum(dim=1) / dd
+        covar = 0.5 * (zvar - (xvar + yvar))
+        num = (yvar - xvar) + torch.sqrt((yvar - xvar) ** 2 + 4.0 * covar**2)
+        slope = num / (2.0 * covar)
+        regs.append(torch.stack([slope, ym - slope * xm], dim=1))
+        maxes.append(torch.stack([
+            torch.where(inside, fa, torch.full_like(fa, -_BIG)).amax(dim=1),
+            torch.where(inside, fb, torch.full_like(fb, -_BIG)).amax(dim=1),
+        ], dim=1))
+    suf = torch.stack(sufs, dim=1)    # (B, P, 6, S+1, S+1)
+    reg = torch.stack(regs, dim=1)    # (B, P, 2)
+    mx = torch.stack(maxes, dim=1)    # (B, P, 2)
+    n_pairs = len(pairs)
+
+    # Pearson of the pixels outside the [ia:, jb:] rectangle at every grid
+    # step k (thr_f = k / scale), all pairs and sites at once
+    ks = torch.arange(s_codes + 1, dtype=torch.float32, device=dev)
+    thr_f = ks * i_step
+    thr_s = reg[..., :1] * thr_f + reg[..., 1:]                      # (B, P, K)
+    ia = torch.clamp(ks, 0, s_codes).to(torch.int64).expand_as(thr_s)
+    jb = torch.clamp(torch.ceil(thr_s * scale), 0, s_codes).to(torch.int64)
+    flat = suf.reshape(b, n_pairs, 6, (s_codes + 1) ** 2)
+    rect = torch.gather(flat, 3, (ia * (s_codes + 1) + jb)[:, :, None, :].expand(-1, -1, 6, -1))
+    n, sf, ss, sff, sss, sfs = (flat[:, :, i, :1] - rect[:, :, i] for i in range(6))
+    num = (n * sfs - sf * ss).double()
+    var_f, var_s = n * sff - sf * sf, n * sss - ss * ss
+    # scipy.pearsonr of a constant input is nan: it fails every comparison
+    cost = torch.where(
+        (var_f > 0) & (var_s > 0),
+        num / torch.sqrt(var_f.double() * var_s.double()),
+        torch.full_like(num, float("nan")),
+    )
+
+    # CP's descent, per site and pair, on the host over the evaluated steps
+    cost_h, n_h = cost.cpu().numpy(), n.cpu().numpy()
+    reg_h, mx_h = reg.cpu().numpy(), mx.cpu().numpy()
+    f32 = np.float32
+    step32 = f32(i_step)
+    thr_k = np.zeros((b, n_pairs), np.float32)
+    for s in range(b):
+        for p in range(n_pairs):
+            sa, sb = reg_h[s, p]
+            fa_max, fb_max = mx_h[s, p]
+            k0 = np.floor(f32(max(fa_max, fb_max)) / step32) + f32(1.0)
+            k = k0
+            while k * step32 > fa_max and sa * (k * step32) + sb > fb_max:
+                k = k - f32(1.0)
+            t = k0
+            while k > 1.0:
+                ki = int(k)
+                c, nb = cost_h[s, p, ki], n_h[s, p, ki]
+                t = k
+                if not fast or k < 10.0:
+                    step = 1.0
+                elif c > 0.45:
+                    step = 10.0
+                elif c > 0.35:
+                    step = 5.0
+                elif c > 0.25:
+                    step = 2.0
+                else:
+                    step = 1.0
+                k = k - f32(step)
+                if c <= 0 or nb < 2.0:
+                    break
+            thr_k[s, p] = t
+    thr_f = torch.as_tensor(thr_k, device=dev) * i_step
+    return thr_f, reg[..., 0] * thr_f + reg[..., 1]
+
+
+def coloc_threshold_sums(labels, vr, ranks, tff, thr_f, thr_s, inv_r, max_cells):
+    """Pass E: every thresholded masked sum in one lane scan. labels (B, N)
+    raw ids, vr (B, N, C) raw values, ranks (B, N, C) dense ranks, tff
+    (B, max_cells, C) per-object Manders thresholds, thr_f, thr_s (B, P)
+    Costes thresholds in raw units, inv_r (B, P) rank normalizers ->
+    (B, max_cells, C + 8P) ordered [tot_thr (C) | Manders a, b per pair |
+    RWC a, b | Costes a, b, denom_a, denom_b]. K4 pass E on CUDA."""
+    consts = torch.stack([thr_f, thr_s, inv_r], dim=1).float().contiguous()
+    args = (labels.to(torch.int32).contiguous(), vr.float().contiguous(),
+            ranks.float().contiguous(), tff.float().contiguous(), consts, max_cells)
+    if labels.is_cuda:
+        return sc.seg_lane_sums_e(*args)
+    return sc.lane_sums_e_plain(*args)
+
+
+def _intensity_codes(vr: torch.Tensor, inside_m: torch.Tensor, integer_grid: bool):
+    """16-bit intensity codes (B, N, C) + CP's [0, 1] normalizer (B,): raw
+    uint16 values are the code; floats quantize on each site's range."""
+    b = vr.shape[0]
+    if integer_grid:
+        codes = torch.clamp(vr.to(torch.int32), 0, 65535)
+        return codes, torch.full((b,), 65535.0, dtype=torch.float32, device=vr.device)
+    ins = inside_m[..., None]
+    vmin_g = torch.where(ins, vr, torch.full_like(vr, _BIG)).amin(dim=1, keepdim=True)
+    vmax_g = torch.where(ins, vr, torch.full_like(vr, -_BIG)).amax(dim=1, keepdim=True)
+    span = torch.clamp(vmax_g - vmin_g, min=1e-12)
+    codes = torch.clamp(((vr - vmin_g) / span * 65535.0).to(torch.int32), 0, 65535)
+    norm = torch.clamp(torch.where(ins, vr, torch.zeros_like(vr)).amax(dim=(1, 2)), min=1e-12)
+    return codes, norm
+
+
+def colocalization_features_multiset(
+    image: torch.Tensor,
+    labels_by_set: dict[str, torch.Tensor],
+    vmax_by_set: dict[str, torch.Tensor],
+    max_cells: int,
+    thr_pct: float = 15.0,
+    costes_scale: int = 255,
+    costes_fast: bool = True,
+    integer_grid: bool = True,
+    additive: tuple[str, str, str] | None = ("Cells", "Nuclei", "Cytoplasm"),
+    costes_fine_scale: int | None = None,
+):
+    """Thresholded colocalization of several object sets at once, sharing
+    the intensity codes, one rank pick over all sets and channels, and the
+    count tables: with ``additive`` = (whole, part1, part2) and whole =
+    part1 (+) part2 (Cells = Nuclei + Cytoplasm), only the parts are counted
+    and the whole's tables are their sums.
+
+    Returns {set: {(a, b): {"M1", "M2", "RWC1", "RWC2", "C1", "C2"} each
+    (B, max_cells), "costes_thr": (thr_f, thr_s) (B, P) normalized}}.
+    Empty denominators give 0."""
+    if costes_fine_scale is not None:
+        raise NotImplementedError(
+            "costes_fine_scale: the second-level Costes descent (costes_fine_refine) "
+            "is not ported yet"
+        )
+    b, h, w, n_ch = image.shape
+    names = list(labels_by_set)
+    pairs = _pairs(n_ch)
+    if not pairs:
+        empty = torch.zeros((b, 0), device=image.device)
+        return {nm: {"costes_thr": (empty, empty)} for nm in names}
+    vr = image.reshape(b, h * w, n_ch).float()
+    flats = {nm: labels_by_set[nm].reshape(b, -1).to(torch.int32) for nm in names}
+    insides = {nm: flats[nm] > 0 for nm in names}
+    any_inside = insides[names[0]]
+    for nm in names[1:]:
+        any_inside = any_inside | insides[nm]
+    codes, norm = _intensity_codes(vr, any_inside, integer_grid)
+    hi, lo = codes >> 8, codes & 0xFF
+    del codes
+
+    if additive is not None and all(nm in labels_by_set for nm in additive):
+        whole, p1, p2 = additive
+        count_names, derive = [p1, p2], {whole: (p1, p2)}
+    else:
+        count_names, derive = names, {}
+
+    cnts = _value_count_tables(hi, lo, [insides[nm] for nm in count_names])
+    cnt_by = {nm: cnts[..., i] for i, nm in enumerate(count_names)}
+    for whole, (p1, p2) in derive.items():
+        cnt_by[whole] = cnt_by[p1] + cnt_by[p2]
+    del cnts
+    tables, n_distinct = [], {}
+    for c in range(n_ch):
+        per_set = []
+        for nm in names:
+            t, nd = _rank_table(cnt_by[nm][:, c])
+            per_set.append(t)
+            n_distinct.setdefault(nm, []).append(nd)
+        tables.append(torch.stack(per_set, dim=-1))
+    ranks_all = _pick_rows_mc(hi, lo, torch.stack(tables, dim=1))  # (B, N, C, n_sets)
+    del hi, lo, tables
+
+    s_codes = costes_scale + 1
+    vn = vr / norm[:, None, None]
+    code_s = torch.clamp((vn * costes_scale).to(torch.int32), 0, costes_scale)
+    joint_list = _joint_tables(code_s, pairs, [insides[nm] for nm in count_names], s_codes)
+    joint_by = dict(zip(count_names, joint_list))
+    for whole, (p1, p2) in derive.items():
+        joint_by[whole] = {k: joint_by[p1][k] + joint_by[p2][k] for k in joint_by[p1]}
+    del code_s
+
+    out = {}
+    for k_set, nm in enumerate(names):
+        nd = n_distinct[nm]
+        inv_r = torch.stack(
+            [1.0 / torch.clamp(torch.maximum(nd[a], nd[c]), min=1.0) for a, c in pairs], dim=1
+        )
+        thr_f_n, thr_s_n = costes_thresholds(
+            vn, insides[nm], pairs, scale=costes_scale, fast=costes_fast, joint=joint_by[nm]
+        )
+        vmax = vmax_by_set[nm]
+        tff = (thr_pct / 100.0) * torch.where(
+            torch.isfinite(vmax) & (vmax.abs() < 3.38e38), vmax, torch.zeros_like(vmax)
+        )
+        sums = coloc_threshold_sums(
+            flats[nm], vr, ranks_all[..., k_set], tff,
+            thr_f_n * norm[:, None], thr_s_n * norm[:, None], inv_r, max_cells,
+        )
+        p = len(pairs)
+        tot_thr = sums[..., :n_ch]
+        mand = sums[..., n_ch : n_ch + 2 * p]
+        rwcs = sums[..., n_ch + 2 * p : n_ch + 4 * p]
+        cots = sums[..., n_ch + 4 * p :]
+
+        def safe(num, den):
+            return torch.where(den > 0, num / torch.clamp(den, min=1e-30), torch.zeros_like(num))
+
+        res = {}
+        for i, (a, c) in enumerate(pairs):
+            res[(a, c)] = {
+                "M1": safe(mand[..., 2 * i], tot_thr[..., a]),
+                "M2": safe(mand[..., 2 * i + 1], tot_thr[..., c]),
+                "RWC1": safe(rwcs[..., 2 * i], tot_thr[..., a]),
+                "RWC2": safe(rwcs[..., 2 * i + 1], tot_thr[..., c]),
+                "C1": safe(cots[..., 4 * i], cots[..., 4 * i + 2]),
+                "C2": safe(cots[..., 4 * i + 1], cots[..., 4 * i + 3]),
+            }
+        res["costes_thr"] = (thr_f_n, thr_s_n)
+        out[nm] = res
+    return out
+
+
+def colocalization_features(
+    image: torch.Tensor,
+    labels: torch.Tensor,
+    vmax: torch.Tensor,
+    max_cells: int,
+    thr_pct: float = 15.0,
+    costes_scale: int = 255,
+    costes_fast: bool = True,
+    integer_grid: bool = True,
+    costes_fine_scale: int | None = None,
+):
+    """The thresholded colocalization statistics of one object set: image
+    (B, H, W, C), labels (B, H, W), vmax (B, max_cells, C) per-object
+    channel maxima."""
+    return colocalization_features_multiset(
+        image, {"obj": labels}, {"obj": vmax}, max_cells,
+        thr_pct=thr_pct, costes_scale=costes_scale, costes_fast=costes_fast,
+        integer_grid=integer_grid, additive=None, costes_fine_scale=costes_fine_scale,
+    )["obj"]

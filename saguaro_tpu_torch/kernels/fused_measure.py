@@ -8,10 +8,11 @@ structure per object set (port of ``saguaro_tpu/kernels/fused_measure.py``):
       channel min/max, edge min/max, rmax and the max-intensity pixel, after
       one per-pixel gather (K2) of centroids and channel maxima
   C   one lane scan (K4) over a gathered per-label table: centred and bbox
-      moment products, Zernike re/im, centred quadratics, edge quadratics
-
-The radial-distribution lanes of the reference's pass C are a later slice:
-``with_radial=True`` raises ``NotImplementedError``.
+      moment products, Zernike re/im, centred quadratics, edge quadratics;
+      the radial-distribution lanes of the reference's pass C (ring and
+      ring-by-wedge counts and channel sums) run as one keyed sum over
+      each pixel's packed ring/wedge code (K4 radial): a pixel adds to its
+      own bin only, and the ring sums are the sums of their 8 wedges
 
 All tensors carry a leading site-batch dimension: image (B, H, W, C),
 labels (B, H, W); every output is (B, max_cells, ...).
@@ -51,6 +52,14 @@ def _lane_scan_c(labels, image, border, table, zcoef, max_cells, moments, zernik
     )
 
 
+def _radial_sums(labels, codes, vr, max_cells, n_codes):
+    """Per-(label, bin) counts and channel sums: K4 radial for CUDA
+    tensors, the plain form for CPU ones."""
+    if labels.is_cuda:
+        return sc.seg_radial_sums(labels, codes, vr, max_cells, n_codes)
+    return sc.radial_sums_plain(labels, codes, vr, max_cells, n_codes)
+
+
 def _segment_reduce(vals: torch.Tensor, seg: torch.Tensor, max_cells: int, op: str):
     """(B, N, K) values + (B, N) slots -> (B, max_cells, K) per-slot min or
     max; slots no pixel reaches hold the identity (+-inf), as
@@ -83,12 +92,14 @@ def fused_object_features(
     ``corr``      {(a, b): (corr, slope)}
     ``coloc_quad``{(a, b): (overlap, K1, K2)}
     ``edge``      edge-intensity set                         [with_edge]
-    ``radial``    None (radial distribution is a later slice)
+    ``radial``    FracAtD / MeanFrac / RadialCV, each
+                  (B, max_cells, n_rings, C)                 [with_radial]
+
+    ``ring_wedge``: optional (B, H, W) int32 packed CP ring/wedge code from
+    ``radial.cp_ring_wedge`` (ring*8 + wedge; 8*n_rings = excluded). When
+    given, the radial lanes bin by CP's normalized edge + centre distance;
+    otherwise by the centroid distance over the object's largest one.
     """
-    if with_radial or ring_wedge is not None:
-        raise NotImplementedError(
-            "fused_object_features: the radial-distribution lanes are not ported yet"
-        )
     dev = image.device
     b, h, w, n_ch = image.shape
     image = image.float().contiguous()
@@ -201,6 +212,61 @@ def fused_object_features(
     for name, n in spec_c:
         parts[name] = sums_c[..., off : off + n]
         off += n
+
+    # ---------------- radial rings and wedges (K4 radial) ----------------
+    radial_out = None
+    if with_radial:
+        if ring_wedge is not None:
+            codes = ring_wedge.reshape(b, h * w).to(torch.int32).contiguous()
+        else:
+            g_r = mxu_take_t(rmax, seg, max_cells)[:, 0]
+            inv_rmax = 1.0 / torch.clamp(g_r, min=1e-6)
+            ring = torch.clamp((dist * inv_rmax * n_rings).to(torch.int32), 0, n_rings - 1)
+            # RadialCV octant wedges (measureobjectintensitydistribution)
+            wedge = (
+                (dy > 0).to(torch.int32) + 2 * (dx > 0).to(torch.int32)
+                + 4 * (dy.abs() > dx.abs()).to(torch.int32)
+            )
+            codes = (ring * 8 + wedge).contiguous()
+        rcv = _radial_sums(
+            lab32.reshape(b, h * w), codes, vr.contiguous(), max_cells, 8 * n_rings
+        ).view(b, max_cells, n_rings, 8, 1 + n_ch)
+        ring_sums = rcv.sum(dim=3)
+        ring_cnt = ring_sums[..., 0]
+        ring_int = ring_sums[..., 1:]
+        total_int = torch.clamp(ring_int.sum(dim=2, keepdim=True), min=1e-12)
+        frac_at_d = ring_int / total_int
+        # denominator = pixels in any ring (CP's good mask: all of Area for
+        # centroid binning, without race-lost pixels for CP binning)
+        pix_frac = ring_cnt / torch.clamp(ring_cnt.sum(dim=2, keepdim=True), min=1.0)
+        mean_frac = frac_at_d / torch.clamp(pix_frac[..., None], min=1e-12)
+        zr = zero[..., None, None]
+        zeros_r = torch.zeros_like(frac_at_d)
+        radial_out = {
+            "FracAtD": torch.where(zr, zeros_r, frac_at_d),
+            "MeanFrac": torch.where(zr, zeros_r, mean_frac),
+        }
+        # RadialCV: per (object, ring) coefficient of variation of the 8
+        # wedges' mean intensities over the populated wedges (population
+        # std); objects and rings with no populated wedge give 0
+        wcnt = rcv[..., 0]
+        wsum = rcv[..., 1:]
+        present = wcnt > 0
+        wmean = torch.where(
+            present[..., None], wsum / torch.clamp(wcnt[..., None], min=1.0),
+            torch.zeros_like(wsum),
+        )
+        npres = torch.clamp(present.sum(dim=3), min=1)[..., None].float()
+        mean_w = wmean.sum(dim=3) / npres
+        var_w = torch.where(
+            present[..., None], (wmean - mean_w[..., None, :]) ** 2, torch.zeros_like(wmean)
+        ).sum(dim=3) / npres
+        any_w = present.sum(dim=3)[..., None] > 0
+        radial_out["RadialCV"] = torch.where(
+            any_w & (mean_w > 0) & ~zr,
+            torch.sqrt(var_w) / torch.clamp(mean_w, min=1e-30),
+            torch.zeros_like(mean_w),
+        )
 
     # ---------------- assemble family outputs ----------------
     zt = torch.zeros_like(cnt)
@@ -365,5 +431,5 @@ def fused_object_features(
         "corr": corr,
         "coloc_quad": coloc_quad,
         "edge": edge_out,
-        "radial": None,
+        "radial": radial_out,
     }

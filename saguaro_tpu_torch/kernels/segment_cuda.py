@@ -1,4 +1,4 @@
-"""Hopper kernels K1-K4 of the measurement stage, their bindings and plain twins.
+"""Hopper kernels K1-K6 of the measurement stage, their bindings and plain twins.
 
 Each CUDA kernel under ``saguaro_tpu_torch/csrc/`` replaces one Pallas
 kernel of ``saguaro_tpu/kernels/segment_pallas.py``:
@@ -6,10 +6,14 @@ kernel of ``saguaro_tpu/kernels/segment_pallas.py``:
 * K1 ``seg_counts``      fused per-label histograms     (``seg_counts_pallas``)
 * K2 ``seg_take_t``      per-pixel table gather, (K, N)  (``seg_take_t_pallas``)
 * K3 ``seg_sums``        per-label sums of value lanes   (``seg_sums_pallas``)
-* K4 ``seg_lane_sums_a`` / ``seg_lane_sums_c``
+* K4 ``seg_lane_sums_a`` / ``seg_lane_sums_c`` / ``seg_lane_sums_e``
                          per-label sums of lanes built in registers by the
-                         measurement's pass A / pass C lane functions
-                         (``seg_lane_sums_pallas``)
+                         measurement's pass A / pass C / colocalization
+                         pass E lane functions (``seg_lane_sums_pallas``)
+     ``seg_radial_sums`` the radial lanes of pass C, as per-(label, bin)
+                         counts and channel sums
+* K5 ``seg_edt_sweep``   bounded horizontal EDT sweep    (``edt_sweep_pallas``)
+* K6 ``seg_pick2``       per-pixel two-level table pick  (``pick2_pallas``)
 
 Every kernel takes a leading site-batch dimension, so one launch covers a
 batch. The sources are compiled at first use by one ``nvcc`` call into a
@@ -51,6 +55,14 @@ __all__ = [
     "lane_sums_a_plain",
     "seg_lane_sums_c",
     "lane_sums_c_plain",
+    "seg_lane_sums_e",
+    "lane_sums_e_plain",
+    "seg_radial_sums",
+    "radial_sums_plain",
+    "seg_edt_sweep",
+    "edt_sweep_plain",
+    "seg_pick2",
+    "pick2_plain",
     "n_lanes_a",
     "n_lanes_c",
     "table_cols_c",
@@ -59,7 +71,10 @@ __all__ = [
 _PKG = Path(__file__).resolve().parents[1]
 _CSRC = _PKG / "csrc"
 _BUILD = _PKG / "_build"
-_SOURCES = ("common.cuh", "counts.cu", "take.cu", "sums.cu", "lane_sums.cu", "errors.cu")
+_SOURCES = (
+    "common.cuh", "counts.cu", "take.cu", "sums.cu", "lane_sums.cu", "radial_sums.cu",
+    "edt_sweep.cu", "pick2.cu", "errors.cu",
+)
 _NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -73,6 +88,10 @@ LAUNCHES: dict[str, int] = {
     "seg_sums": 0,
     "seg_lane_sums_a": 0,
     "seg_lane_sums_c": 0,
+    "seg_lane_sums_e": 0,
+    "seg_radial_sums": 0,
+    "seg_edt_sweep": 0,
+    "seg_pick2": 0,
 }
 
 _LIB: ctypes.CDLL | None = None
@@ -133,6 +152,10 @@ def _lib() -> ctypes.CDLL:
             "sag_sums": (p, p, p, i, ll, i, i, p),
             "sag_lanes_a": (p, p, p, p, p, i, i, i, i, i, i, i, p),
             "sag_lanes_c": (p, p, p, p, i, p, p, i, i, i, i, i, i, i, i, i, p),
+            "sag_lanes_e": (p, p, p, p, p, p, i, ll, i, i, i, p),
+            "sag_radial_sums": (p, p, p, p, i, ll, i, i, i, p),
+            "sag_edt_sweep": (p, p, p, i, i, i, i, p),
+            "sag_pick2": (p, p, p, p, i, ll, i, i, p),
         }
         for name, args in sigs.items():
             fn = getattr(lib, name)
@@ -526,3 +549,214 @@ def lane_sums_c_plain(
 
     nl = n_lanes_c(n_ch, with_moments, with_zernike, with_edge)
     return _lane_sums_plain(labels, image, border, max_cells, nl, build, dtype)
+
+
+# ---------------------------------------------------------------------------
+# K4, pass E: the colocalization family's thresholded sums
+
+
+def n_lanes_e(n_ch: int) -> int:
+    return n_ch + 8 * len(_pairs(n_ch))
+
+
+def seg_lane_sums_e(
+    labels: torch.Tensor,
+    image: torch.Tensor,
+    ranks: torch.Tensor,
+    tff: torch.Tensor,
+    consts: torch.Tensor,
+    max_cells: int,
+) -> torch.Tensor:
+    """Pass E sums. labels (B, N) int32 raw ids (ids >= max_cells fold into
+    slot 0), image (B, N, C) f32, ranks (B, N, C) f32 dense ranks of the
+    object set, tff (B, max_cells, C) f32 per-label Manders thresholds,
+    consts (B, 3, P) f32 per-site Costes (thr_f, thr_s) and 1/R for the P
+    channel pairs -> (B, max_cells, C + 8P) f32, ordered [tot_thr (C) |
+    Manders a, b per pair | RWC a, b | Costes a, b, denom_a, denom_b]."""
+    _check(labels, "labels", torch.int32, 2)
+    _check(image, "image", torch.float32, 3)
+    _check(ranks, "ranks", torch.float32, 3)
+    _check(tff, "tff", torch.float32, 3)
+    _check(consts, "consts", torch.float32, 3)
+    b, n = labels.shape
+    n_ch = image.shape[2]
+    n_pairs = len(_pairs(n_ch))
+    if image.shape != (b, n, n_ch) or ranks.shape != (b, n, n_ch):
+        raise ValueError("labels, image and ranks must share (B, N) and image/ranks (B, N, C)")
+    if tff.shape != (b, max_cells, n_ch) or consts.shape != (b, 3, n_pairs):
+        raise ValueError(f"tff {tuple(tff.shape)} or consts {tuple(consts.shape)} do not match")
+    if not 2 <= n_ch <= _MAX_CH:
+        raise ValueError(f"pass E takes 2..{_MAX_CH} channels, got {n_ch}")
+    nl = n_lanes_e(n_ch)
+    if max_cells * 4 > 200 * 1024:
+        raise ValueError(f"max_cells={max_cells} exceeds pass E's shared accumulator")
+    out = torch.zeros((b, max_cells, nl), dtype=torch.float32, device=labels.device)
+    _launch(
+        "sag_lanes_e", "seg_lane_sums_e", labels.device,
+        labels.data_ptr(), image.data_ptr(), ranks.data_ptr(), tff.data_ptr(),
+        consts.data_ptr(), out.data_ptr(), b, n, n_ch, max_cells, n_pairs,
+    )
+    return out
+
+
+def _lanes_e(inside, vr, rk, g, thr_f, thr_s, inv_r):
+    """Pass E lanes of P pixels: inside (P,), vr, rk, g (P, C) (g the
+    gathered Manders thresholds), thr_f, thr_s, inv_r (P, pairs) ->
+    (P, n_lanes_e), the column order of colocalization's lanes_e_fn."""
+    above = (vr > g).to(vr.dtype) * inside[:, None]
+    mand, rwcs, cots = [], [], []
+    for i, (a, b) in enumerate(_pairs(vr.shape[1])):
+        cmb = above[:, a] * above[:, b]
+        mand += [vr[:, a] * cmb, vr[:, b] * cmb]
+        w = 1.0 - (rk[:, a] - rk[:, b]).abs() * inv_r[:, i]
+        rwcs += [vr[:, a] * w * cmb, vr[:, b] * w * cmb]
+        ca = (vr[:, a] > thr_f[:, i]).to(vr.dtype) * inside
+        cb = (vr[:, b] > thr_s[:, i]).to(vr.dtype) * inside
+        cc = ca * cb
+        cots += [vr[:, a] * cc, vr[:, b] * cc, vr[:, a] * ca, vr[:, b] * cb]
+    return torch.cat([vr * above, torch.stack(mand + rwcs + cots, dim=1)], dim=1)
+
+
+def lane_sums_e_plain(
+    labels, image, ranks, tff, consts, max_cells, magnitude=False, dtype=torch.float32
+):
+    """Plain PyTorch form of ``seg_lane_sums_e``, summed in ``dtype``
+    (``magnitude=True`` sums |lane|)."""
+    b, n = labels.shape
+    n_ch = image.shape[2]
+    lab3 = labels.reshape(b, 1, n)
+    img4 = image.reshape(b, 1, n, n_ch)
+    rk_all = ranks.reshape(b * n, n_ch).to(dtype)
+    tab = clean_table(tff).reshape(b * max_cells, n_ch).to(dtype)
+    cst = consts.to(dtype)
+
+    def build(sl, y, x, inside, bnd, vr, rows):
+        site = torch.div(rows, max_cells, rounding_mode="floor")
+        lanes = _lanes_e(inside, vr, rk_all[sl], tab[rows], cst[site, 0], cst[site, 1],
+                         cst[site, 2])
+        return lanes.abs() if magnitude else lanes
+
+    border = torch.zeros_like(lab3, dtype=torch.uint8)
+    return _lane_sums_plain(lab3, img4, border, max_cells, n_lanes_e(n_ch), build, dtype)
+
+
+# ---------------------------------------------------------------------------
+# K4, radial lanes: per-(label, ring/wedge bin) counts and channel sums
+
+
+def seg_radial_sums(
+    labels: torch.Tensor, codes: torch.Tensor, image: torch.Tensor, max_cells: int, n_codes: int
+) -> torch.Tensor:
+    """labels (B, N) int32 raw ids (ids >= max_cells fold into slot 0),
+    codes (B, N) int32 packed bins ring*8 + wedge (a code outside
+    [0, n_codes) is excluded), image (B, N, C) f32 -> (B, max_cells,
+    n_codes, 1 + C) f32: per (label, bin) the pixel count and the channel
+    sums of the labelled pixels."""
+    _check(labels, "labels", torch.int32, 2)
+    _check(codes, "codes", torch.int32, 2)
+    _check(image, "image", torch.float32, 3)
+    b, n = labels.shape
+    n_ch = image.shape[2]
+    if codes.shape != (b, n) or image.shape[:2] != (b, n):
+        raise ValueError("labels, codes and image must share (B, N)")
+    if not 1 <= n_ch <= _MAX_CH:
+        raise ValueError(f"the radial kernel takes 1..{_MAX_CH} channels, got {n_ch}")
+    out = torch.zeros((b, max_cells, n_codes, 1 + n_ch), dtype=torch.float32, device=labels.device)
+    _launch(
+        "sag_radial_sums", "seg_radial_sums", labels.device,
+        labels.data_ptr(), codes.data_ptr(), image.data_ptr(), out.data_ptr(),
+        b, n, n_ch, max_cells, n_codes,
+    )
+    return out
+
+
+def radial_sums_plain(labels, codes, image, max_cells, n_codes, dtype=torch.float32):
+    """Plain PyTorch form of ``seg_radial_sums`` (``index_add_`` into
+    (label, bin) rows), summed in ``dtype``."""
+    b, n = labels.shape
+    n_ch = image.shape[2]
+    raw = labels.long()
+    code = codes.long()
+    act = (raw > 0) & (code >= 0) & (code < n_codes)
+    slot = torch.where(raw < max_cells, raw, torch.zeros_like(raw))
+    site = torch.arange(b, device=labels.device)[:, None] * (max_cells * n_codes)
+    size = b * max_cells * n_codes
+    key = torch.where(act, site + slot * n_codes + code, size).reshape(-1)
+    vals = torch.cat([torch.ones((b, n, 1), dtype=dtype, device=labels.device),
+                      image.to(dtype)], dim=2).reshape(b * n, 1 + n_ch)
+    out = torch.zeros((size + 1, 1 + n_ch), dtype=dtype, device=labels.device)
+    out.index_add_(0, key, vals)
+    return out[:size].view(b, max_cells, n_codes, 1 + n_ch)
+
+
+# ---------------------------------------------------------------------------
+# K5: bounded horizontal EDT sweep
+
+
+def seg_edt_sweep(v2: torch.Tensor, d2_init: torch.Tensor, max_radius: int) -> torch.Tensor:
+    """v2, d2_init (B, H, W) f32 -> (B, H, W) f32: ``min(d2_init,
+    min_{1 <= |dx| <= R} v2[row, col + dx] + dx**2)``, candidates outside
+    the row read as +inf. Exact."""
+    _check(v2, "v2", torch.float32, 3)
+    _check(d2_init, "d2_init", torch.float32, 3)
+    if v2.shape != d2_init.shape:
+        raise ValueError(f"v2 {tuple(v2.shape)} and d2_init {tuple(d2_init.shape)} differ")
+    b, h, w = v2.shape
+    if (w + 2 * max_radius) * 4 > 200 * 1024:
+        raise ValueError(f"a row of {w} pixels with radius {max_radius} exceeds shared memory")
+    out = torch.empty_like(v2)
+    _launch(
+        "sag_edt_sweep", "seg_edt_sweep", v2.device,
+        v2.data_ptr(), d2_init.data_ptr(), out.data_ptr(), b, h, w, max_radius,
+    )
+    return out
+
+
+def edt_sweep_plain(v2: torch.Tensor, d2_init: torch.Tensor, max_radius: int) -> torch.Tensor:
+    """Plain PyTorch form of ``seg_edt_sweep``: 2R shifted min-adds."""
+    w = v2.shape[-1]
+    v2p = torch.nn.functional.pad(v2, (max_radius, max_radius), value=float("inf"))
+    d2 = d2_init
+    for dx in range(1, max_radius + 1):
+        left = v2p[..., max_radius - dx : max_radius - dx + w]
+        right = v2p[..., max_radius + dx : max_radius + dx + w]
+        d2 = torch.minimum(d2, torch.minimum(left, right) + float(dx * dx))
+    return d2
+
+
+# ---------------------------------------------------------------------------
+# K6: per-pixel two-level table pick
+
+
+def seg_pick2(hi: torch.Tensor, lo: torch.Tensor, tables: torch.Tensor) -> torch.Tensor:
+    """hi, lo (B, N, C) int32 byte codes + tables (B, C, 256, 256, K) f32 ->
+    (B, N, C, K) f32: ``tables[b, c, hi[b, i, c], lo[b, i, c], k]``, exact
+    (codes outside [0, 256) give 0)."""
+    _check(hi, "hi", torch.int32, 3)
+    _check(lo, "lo", torch.int32, 3)
+    _check(tables, "tables", torch.float32, 5)
+    b, n, n_ch = hi.shape
+    if lo.shape != hi.shape or tables.shape[:4] != (b, n_ch, 256, 256):
+        raise ValueError(f"hi {tuple(hi.shape)}, lo {tuple(lo.shape)} and tables "
+                         f"{tuple(tables.shape)} do not match")
+    k = tables.shape[4]
+    out = torch.empty((b, n, n_ch, k), dtype=torch.float32, device=hi.device)
+    _launch(
+        "sag_pick2", "seg_pick2", hi.device,
+        hi.data_ptr(), lo.data_ptr(), tables.data_ptr(), out.data_ptr(), b, n, n_ch, k,
+    )
+    return out
+
+
+def pick2_plain(hi: torch.Tensor, lo: torch.Tensor, tables: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch form of ``seg_pick2`` (an indexed gather)."""
+    b, n, n_ch = hi.shape
+    k = tables.shape[4]
+    h, l = hi.long(), lo.long()
+    ok = (h >= 0) & (h < 256) & (l >= 0) & (l < 256)
+    idx = torch.where(ok, h * 256 + l, torch.zeros_like(h))
+    flat = tables.reshape(b, n_ch, 65536, k)
+    site = torch.arange(b, device=hi.device)[:, None, None]
+    chan = torch.arange(n_ch, device=hi.device)[None, None, :]
+    out = flat[site, chan, idx]  # (B, N, C, K)
+    return torch.where(ok[..., None], out, torch.zeros_like(out))

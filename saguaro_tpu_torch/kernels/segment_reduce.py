@@ -32,6 +32,17 @@ def _shift(a: torch.Tensor, dy: int, dx: int, fill) -> torch.Tensor:
     return p[..., 1 + dy : 1 + dy + h, 1 + dx : 1 + dx + w]
 
 
+def _boundary(lab: torch.Tensor) -> torch.Tensor:
+    """(B, H, W) int32 labels -> object pixels with a 4-neighbour of another
+    label (the image border counts as background)."""
+    return (
+        (_shift(lab, -1, 0, 0) != lab)
+        | (_shift(lab, 1, 0, 0) != lab)
+        | (_shift(lab, 0, -1, 0) != lab)
+        | (_shift(lab, 0, 1, 0) != lab)
+    ) & (lab > 0)
+
+
 def perimeter_weight_image(labels: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Per-pixel weights of the CP 4.2.8 perimeter (exact).
 
@@ -47,12 +58,7 @@ def perimeter_weight_image(labels: torch.Tensor) -> tuple[torch.Tensor, torch.Te
     """
     lab = labels.to(torch.int32)
     sh = _shift
-    border = (
-        (sh(lab, -1, 0, 0) != lab)
-        | (sh(lab, 1, 0, 0) != lab)
-        | (sh(lab, 0, -1, 0) != lab)
-        | (sh(lab, 0, 1, 0) != lab)
-    ) & (lab > 0)
+    border = _boundary(lab)
     b8 = border.to(torch.uint8)
 
     def nb(dy, dx):

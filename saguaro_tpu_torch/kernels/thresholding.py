@@ -1,23 +1,26 @@
 """CP 4.2.8 threshold-module semantics for secondary-object identification
-(port of ``saguaro_tpu/kernels/thresholding.py``, global scope).
+(port of ``saguaro_tpu/kernels/thresholding.py``).
 
 Global threshold by two-class Otsu (256 bins, the argmax bin centre),
 three-class Otsu (128 bins) or Minimum Cross-Entropy (Li), with an optional
 log transform, a correction factor and lower/upper bounds. The histogram is
 the fused per-label count (K1 on CUDA) with the bins as the "labels".
-Adaptive scope and smoothing at binarisation come in a later slice.
+Adaptive scope runs the same method per block of a grid and clips the
+block-constant map around the global guide; ``smooth_for_binarize`` is
+CP's edge-corrected Gaussian blur applied before binarising.
 
 Every function takes a leading site-batch dimension: images (B, H, W),
-thresholds (B,).
+thresholds (B,) or maps (B, H, W).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-from saguaro_tpu_torch.kernels.onehot_reduce import onehot_counts
+from saguaro_tpu_torch.kernels.onehot_reduce import mxu_take, onehot_counts
 
-__all__ = ["global_threshold"]
+__all__ = ["global_threshold", "adaptive_threshold", "smooth_for_binarize"]
 
 _BIG = 3.4e38
 
@@ -167,3 +170,137 @@ def global_threshold(
         thr = torch.expm1(thr)
     final = torch.clamp(thr * correction, lower_bound, upper_bound)
     return final, thr
+
+
+def _block_bounds(n: int, nblocks: int) -> list[int]:
+    """CP block boundaries: int(i * n / nblocks) for i in 0..nblocks."""
+    inc = n / nblocks
+    return [int(i * inc) for i in range(nblocks)] + [n]
+
+
+def adaptive_threshold(
+    image: torch.Tensor,
+    method: str = "otsu",
+    window_size: int = 50,
+    log_transform: bool = False,
+    middle_foreground: bool = True,
+    correction: float = 1.0,
+    lower_bound: float = 0.0,
+    upper_bound: float = 3.0e38,
+    li_tolerance: float = 0.5,
+    nbins: int = 256,
+):
+    """CP 4.2.8 Threshold module, adaptive scope, per site of (B, H, W).
+
+    The image splits into ``size // window_size`` blocks per axis
+    (int-truncated float boundaries; fewer than 2 on an axis is refused);
+    the method runs per block as the global scope runs on the whole image
+    and fills its block of the map (a constant block takes its value, an
+    empty one the global guide); the corrected map is clipped to [0.7, 1.5]
+    x the corrected guide, then to [lower_bound, upper_bound]. Returns
+    (final_map (B, H, W), guide_final (B,), orig_map (B, H, W))."""
+    b, h, w = image.shape
+    dev = image.device
+    nb_i, nb_j = h // window_size, w // window_size
+    if nb_i < 2 or nb_j < 2:
+        raise ValueError(
+            f"Adaptive window {window_size} cannot exceed 50% of an image dimension"
+            f" (image {h}x{w})"
+        )
+    bounds_i = _block_bounds(h, nb_i)
+    bounds_j = _block_bounds(w, nb_j)
+    nb = nb_i * nb_j
+    _, guide_orig = global_threshold(
+        image, method=method, log_transform=log_transform, middle_foreground=middle_foreground,
+        li_tolerance=li_tolerance, nbins=nbins,
+    )
+    data = image.float()
+    valid = torch.isfinite(data)
+    if log_transform:
+        data = torch.log1p(torch.clamp(data, min=0.0))
+    row_blk = np.searchsorted(np.asarray(bounds_i[1:-1]), np.arange(h), "right")
+    col_blk = np.searchsorted(np.asarray(bounds_j[1:-1]), np.arange(w), "right")
+    block_id = torch.as_tensor(row_blk[:, None] * nb_j + col_blk[None, :], device=dev)
+    bid = block_id.reshape(1, -1).expand(b, h * w)
+    dflat, vflat = data.reshape(b, -1), valid.reshape(b, -1)
+    n_valid = torch.zeros((b, nb), dtype=torch.float32, device=dev).scatter_add_(
+        1, bid, vflat.float())
+
+    if method in ("otsu", "otsu3"):
+        blk_bins = nbins if method == "otsu" else 128
+        big = torch.tensor(_BIG, dtype=torch.float32, device=dev)
+        vmin = torch.full((b, nb), _BIG, device=dev).scatter_reduce_(
+            1, bid, torch.where(vflat, dflat, big), "amin")
+        vmax = torch.full((b, nb), -_BIG, device=dev).scatter_reduce_(
+            1, bid, torch.where(vflat, dflat, -big), "amax")
+        span = torch.clamp(vmax - vmin, min=1e-12)
+        bid32 = bid.to(torch.int32)
+        per_px = mxu_take(torch.stack([vmin, span], dim=2), bid32, nb)
+        q = torch.clamp((dflat - per_px[..., 0]) / per_px[..., 1] * blk_bins, 0, blk_bins - 1)
+        (hist,) = onehot_counts(bid32, [(q.to(torch.int32), vflat, blk_bins)], nb)
+        ar = torch.arange(blk_bins, dtype=torch.float32, device=dev)
+        centers = (ar[None, None, :] + 0.5) / blk_bins * span[..., None] + vmin[..., None]
+        hist2, centers2 = hist.reshape(b * nb, blk_bins), centers.reshape(b * nb, blk_bins)
+        if method == "otsu":
+            thr_blocks = _otsu_from_hist(hist2, centers2)
+        else:
+            t_lo, t_hi = _multiotsu3_from_hist(hist2, centers2)
+            thr_blocks = t_lo if middle_foreground else t_hi
+        thr_blocks = torch.where(vmax - vmin <= 0, vmin, thr_blocks.reshape(b, nb))
+    elif method == "li":
+        tol = li_tolerance
+        if log_transform:
+            tol = torch.log1p(torch.tensor(li_tolerance, dtype=torch.float32)) * 0.5 + 1e-6
+        # blocks zero-padded to a common shape, every block iterated at once
+        bh = max(hi - lo for lo, hi in zip(bounds_i, bounds_i[1:]))
+        bw = max(hi - lo for lo, hi in zip(bounds_j, bounds_j[1:]))
+        blocks, bvalid = [], []
+        for i in range(nb_i):
+            i0, i1 = bounds_i[i], bounds_i[i + 1]
+            for j in range(nb_j):
+                j0, j1 = bounds_j[j], bounds_j[j + 1]
+                pad = (0, bw - (j1 - j0), 0, bh - (i1 - i0))
+                blocks.append(torch.nn.functional.pad(data[:, i0:i1, j0:j1], pad))
+                bvalid.append(torch.nn.functional.pad(valid[:, i0:i1, j0:j1], pad, value=False))
+        blocks = torch.stack(blocks, dim=1).reshape(b * nb, bh, bw)
+        bvalid = torch.stack(bvalid, dim=1).reshape(b * nb, bh, bw)
+        thr_blocks = _li_threshold(blocks, bvalid, tol).reshape(b, nb)
+    else:
+        raise ValueError(f"unknown threshold method {method!r}")
+
+    guide_t = torch.log1p(torch.clamp(guide_orig, min=0.0)) if log_transform else guide_orig
+    thr_blocks = torch.where(n_valid > 0, thr_blocks, guide_t[:, None])
+    if log_transform:
+        thr_blocks = torch.expm1(thr_blocks)
+    orig_map = thr_blocks[:, block_id]
+    guide_corr = (guide_orig * correction)[:, None, None]
+    bounded = torch.clamp(orig_map * correction, 0.7 * guide_corr, 1.5 * guide_corr)
+    final_map = torch.clamp(bounded, lower_bound, upper_bound)
+    guide_final = torch.clamp(guide_corr[:, 0, 0], lower_bound, upper_bound)
+    return final_map, guide_final, orig_map
+
+
+def smooth_for_binarize(image: torch.Tensor, sigma: float, truncate: float = 4.0) -> torch.Tensor:
+    """CP Threshold.apply_threshold smoothing of (B, H, W): a Gaussian blur
+    with zero fill normalized by the blurred all-ones mask (edge-corrected),
+    separable, taps within ``truncate * sigma`` (radius at most 32)."""
+    b, h, w = image.shape
+    radius = 32
+    x = torch.arange(-radius, radius + 1, dtype=torch.float32, device=image.device)
+    s = torch.clamp(torch.tensor(sigma, dtype=torch.float32, device=image.device), min=1e-6)
+    k = torch.exp(-0.5 * (x / s) ** 2)
+    k = torch.where(x.abs() <= truncate * s + 0.5, k, torch.zeros_like(k))
+    k = k / k.sum()
+
+    def blur1d(a, dim):
+        n = a.shape[dim]
+        pad = (0, 0, radius, radius) if dim == 1 else (radius, radius)
+        ap = torch.nn.functional.pad(a, pad)
+        out = torch.zeros_like(a)
+        for i in range(2 * radius + 1):
+            out = out + k[i] * ap.narrow(dim, i, n)
+        return out
+
+    num = blur1d(blur1d(image.float(), 1), 2)
+    den = blur1d(blur1d(torch.ones_like(image, dtype=torch.float32), 1), 2)
+    return num / torch.clamp(den, min=1e-12)

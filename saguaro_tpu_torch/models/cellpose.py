@@ -27,6 +27,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from saguaro_tpu_torch.device import resolve_device
+
 __all__ = [
     "CellposeConfig",
     "CellposeUNet",
@@ -181,11 +183,13 @@ class CellposeUNet(nn.Module):
 def init_cellpose(
     config: CellposeConfig = CellposeConfig(),
     seed: int = 0,
-    device: str | torch.device = "cpu",
+    device: str | torch.device | None = None,
 ) -> CellposeUNet:
-    """A CellposeUNet in eval mode with random weights drawn from a seeded
-    generator: convolution and Linear weights normal with variance
-    1/fan_in, zero biases, BatchNorm at identity statistics."""
+    """A CellposeUNet in eval mode on ``device`` (CUDA unless the caller
+    names one) with random weights drawn from a seeded generator on the
+    CPU: convolution and Linear weights normal with variance 1/fan_in, zero
+    biases, BatchNorm at identity statistics."""
+    device = resolve_device(device)
     gen = torch.Generator().manual_seed(seed)
     model = CellposeUNet(config)
     with torch.no_grad():

@@ -9,13 +9,14 @@ edge / correlation families; the Image table gets the threshold, per-
 channel intensity statistics and the granularity spectrum. A site batch is
 measured at once: every tensor carries a leading batch dimension.
 
-Ported families: AreaShape (base, moments, Zernike), Location, Intensity
-and edge intensity, Correlation (Correlation, Slope, Overlap, K),
-Granularity, image intensity and threshold columns. The texture,
-quantile, radius, convex-hull, neighbour, colocalization and
-radial-distribution families, adaptive threshold scope and smoothing at
-binarisation come in later slices: a config that enables one raises
-``NotImplementedError`` naming it.
+Every family of the reference's default FeatureConfig is ported: AreaShape
+(base, moments, Zernike, radii, convex hull), Location, Intensity, edge
+intensity and quantiles, Texture (Haralick), RadialDistribution (CP or
+centroid binning), Neighbors, Correlation (Correlation, Slope, Overlap, K,
+Manders, RWC, Costes), Granularity, image intensity and threshold columns,
+with global or adaptive threshold scope and optional smoothing at
+binarisation. Only the second-level Costes descent (``costes_fine_scale``)
+is not: a config that sets it raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -26,17 +27,40 @@ from dataclasses import dataclass
 import numpy as np
 import pandas as pd
 import torch
+from torch.profiler import record_function
 
 from saguaro_tpu_torch.device import resolve_device
+from saguaro_tpu_torch.kernels.colocalization import colocalization_features_multiset
 from saguaro_tpu_torch.kernels.fused_measure import fused_object_features
+from saguaro_tpu_torch.kernels.glcm import (
+    HARALICK_NAMES,
+    haralick_features,
+    object_glcm_multichannel,
+    quantize_channels,
+)
 from saguaro_tpu_torch.kernels.morphology import (
     expand_labels,
     granularity_spectrum_cp,
     propagate_labels,
     tertiary_objects,
 )
-from saguaro_tpu_torch.kernels.segment_reduce import euler_numbers
-from saguaro_tpu_torch.kernels.thresholding import global_threshold
+from saguaro_tpu_torch.kernels.objects_extra import (
+    neighbor_features,
+    quantile_intensity_features_mc,
+)
+from saguaro_tpu_torch.kernels.onehot_reduce import mxu_take_t
+from saguaro_tpu_torch.kernels.radial import cp_ring_wedge
+from saguaro_tpu_torch.kernels.segment_reduce import _flat, euler_numbers
+from saguaro_tpu_torch.kernels.shape_extra import (
+    _label_edt_sq,
+    convex_features,
+    radius_features,
+)
+from saguaro_tpu_torch.kernels.thresholding import (
+    adaptive_threshold,
+    global_threshold,
+    smooth_for_binarize,
+)
 from saguaro_tpu_torch.kernels.zernike import ZERNIKE_INDEXES
 
 __all__ = [
@@ -48,9 +72,7 @@ __all__ = [
 
 @dataclass(frozen=True)
 class FeatureConfig:
-    """Field for field the reference's FeatureConfig, with its defaults.
-    The defaults enable families this package does not port yet; see the
-    module docstring."""
+    """Field for field the reference's FeatureConfig, with its defaults."""
 
     channels: tuple[str, ...]
     max_cells: int = 512
@@ -122,27 +144,12 @@ class FeatureConfig:
             )
 
 
-def _check_ported(cfg: FeatureConfig, n_ch: int) -> None:
-    """Refuse a config that enables a family this package does not port."""
-    unported = [
-        ("measure_texture", "texture (Haralick)"),
-        ("measure_quantiles", "intensity quantiles"),
-        ("measure_radius", "AreaShape radii"),
-        ("measure_convex", "AreaShape convex hull"),
-        ("measure_neighbors", "neighbors"),
-        ("measure_radial", "radial distribution"),
-    ]
-    names = [fam for flag, fam in unported if getattr(cfg, flag)]
-    if cfg.measure_colocalization and n_ch > 1:
-        names.append("colocalization (Manders/RWC/Costes)")
-    if cfg.secondary_threshold_scope == "adaptive":
-        names.append("adaptive threshold scope")
-    if cfg.secondary_threshold_smoothing > 0:
-        names.append("threshold smoothing")
-    if names:
+def _check_ported(cfg: FeatureConfig) -> None:
+    """Refuse the one option this package does not port."""
+    if cfg.costes_fine_scale is not None:
         raise NotImplementedError(
-            "saguaro_tpu_torch does not measure these yet: " + ", ".join(names)
-            + "; turn them off in FeatureConfig"
+            "saguaro_tpu_torch does not port the second-level Costes descent "
+            "(costes_fine_refine): set costes_fine_scale=None"
         )
 
 
@@ -165,15 +172,18 @@ def _measure_all(image: torch.Tensor, nuclei: torch.Tensor, cfg: FeatureConfig) 
     image: (B, H, W, C) f32; nuclei: (B, H, W) int32 compact labels.
     Returns {"objects": {set: {column: (B, max_cells)}}, "image": {column:
     (B,) or (B, k)}}.
+
+    Each family runs inside a profiler range ``measure/<family>``
+    (``torch.profiler.record_function``: a no-op unless a profiler
+    records), which ``chip_smoke.py --profile`` reads.
     """
     b, h, w, n_ch = image.shape
-    _check_ported(cfg, n_ch)
+    _check_ported(cfg)
     # secondary objects grow over the mean of the non-nuclear channels (or
     # the nuclear channel itself when it is the only one)
     body = image[..., 1:].mean(dim=-1) if n_ch > 1 else image[..., 0]
     li_tol = 0.5 if cfg.integer_intensity_grid else 1e-4
-    thr, orig_thr = global_threshold(
-        body,
+    knobs = dict(
         method=cfg.secondary_threshold_method,
         log_transform=cfg.secondary_threshold_log,
         middle_foreground=cfg.secondary_otsu3_middle_foreground,
@@ -182,39 +192,90 @@ def _measure_all(image: torch.Tensor, nuclei: torch.Tensor, cfg: FeatureConfig) 
         upper_bound=cfg.secondary_threshold_upper,
         li_tolerance=li_tol,
     )
-    claim_mask = body >= thr[:, None, None]  # CP binarizes with >=
-    if cfg.secondary_method == "propagation":
-        cells = propagate_labels(
-            nuclei, body, thr,
-            iterations=cfg.secondary_iterations,
-            regularization=cfg.secondary_regularization,
-            mask=claim_mask,
-        )
-    else:
-        cells = expand_labels(nuclei, body, thr, iterations=cfg.secondary_iterations or 24)
-    cyto = tertiary_objects(cells, nuclei)
+    with record_function("measure/objects"):
+        if cfg.secondary_threshold_scope == "adaptive":
+            # a per-pixel block-constant map; CP's scalar Threshold_* columns
+            # for adaptive scope are the maps' means
+            thr, _guide, orig_map = adaptive_threshold(
+                body, window_size=cfg.secondary_adaptive_window, **knobs
+            )
+            orig_thr = orig_map.mean(dim=(1, 2))
+            thr_cmp = thr
+        else:
+            thr, orig_thr = global_threshold(body, **knobs)
+            thr_cmp = thr[:, None, None]
+        if cfg.secondary_threshold_smoothing > 0:
+            sigma = cfg.secondary_threshold_smoothing / 0.6744 / 2.0
+            claim_mask = smooth_for_binarize(body, sigma) >= thr_cmp
+        else:
+            claim_mask = body >= thr_cmp  # CP binarizes with >=
+        if cfg.secondary_method == "propagation":
+            cells = propagate_labels(
+                nuclei, body, thr,
+                iterations=cfg.secondary_iterations,
+                regularization=cfg.secondary_regularization,
+                mask=claim_mask,
+            )
+        else:
+            cells = expand_labels(nuclei, body, thr, iterations=cfg.secondary_iterations or 24)
+        cyto = tertiary_objects(cells, nuclei)
 
     objects = {"Nuclei": nuclei, "Cells": cells, "Cytoplasm": cyto}
     out: dict = {"objects": {}, "image": {}}
+    vmax_by_set: dict[str, torch.Tensor] = {}
     for obj_name, labels in objects.items():
         feats: dict[str, torch.Tensor] = {}
-        fused = fused_object_features(
-            image, labels, cfg.max_cells,
-            n_rings=cfg.radial_rings,
-            with_moments=cfg.measure_moments,
-            with_zernike=cfg.measure_zernike,
-            with_edge=cfg.measure_edge,
-            with_radial=False,
-        )
+        # one EDT per object set, shared by the radii and the CP ring
+        # geometry, whose centre search reuses MaximumRadius**2
+        cp_rings = cfg.measure_radial and cfg.radial_binning == "cp"
+        d2_img = ring_wedge = radius = None
+        with record_function("measure/edt_radius"):
+            if cfg.measure_radius or cp_rings:
+                d2_img = _label_edt_sq(labels, cfg.max_radius)
+            if cfg.measure_radius:
+                radius = radius_features(labels, cfg.max_cells, cfg.max_radius, d2_img=d2_img)
+        if cp_rings:
+            rmax = radius["MaximumRadius"] if radius is not None else None
+            with record_function("measure/center_race"):
+                ring_wedge = cp_ring_wedge(
+                    labels, cfg.max_cells, cfg.radial_rings, cfg.max_radius,
+                    lam=cfg.radial_lam, d2_img=d2_img,
+                    max_d2=None if rmax is None else rmax * rmax,
+                )
+        del d2_img
+        with record_function("measure/fused"):
+            fused = fused_object_features(
+                image, labels, cfg.max_cells,
+                n_rings=cfg.radial_rings,
+                with_moments=cfg.measure_moments,
+                with_zernike=cfg.measure_zernike,
+                with_edge=cfg.measure_edge,
+                with_radial=cfg.measure_radial,
+                ring_wedge=ring_wedge,
+            )
+            euler = euler_numbers(labels, cfg.max_cells)
+        del ring_wedge
         shape = fused["shape"]
         for k, v in shape.items():
             feats[f"AreaShape_{k}"] = v
         feats["Location_Center_X"] = shape["Center_X"]
         feats["Location_Center_Y"] = shape["Center_Y"]
-        euler = euler_numbers(labels, cfg.max_cells)
         feats["AreaShape_EulerNumber"] = torch.where(
             shape["Area"] > 0, euler, torch.zeros_like(euler)
         )
+        if cfg.measure_radius:
+            for k, v in radius.items():
+                feats[f"AreaShape_{k}"] = v
+        if cfg.measure_convex:
+            with record_function("measure/convex"):
+                conv = convex_features(labels, cfg.max_cells, cfg.convex_dirs, area=shape["Area"])
+            # per-site count of boundary pixels the hull sweep dropped: admin
+            # data for the Image table, not a feature
+            out["image"][f"Metadata_BoundaryCompactionOverflow_{obj_name}"] = conv.pop(
+                "BoundaryOverflow"
+            )
+            for k, v in conv.items():
+                feats[f"AreaShape_{k}"] = v
         if cfg.measure_moments:
             for k, v in fused["moments"].items():
                 feats[f"AreaShape_{k}"] = v
@@ -222,6 +283,42 @@ def _measure_all(image: torch.Tensor, nuclei: torch.Tensor, cfg: FeatureConfig) 
             zmag = fused["zernike"]
             for zi, (n, m) in enumerate(ZERNIKE_INDEXES):
                 feats[f"AreaShape_Zernike_{n}_{m}"] = zmag[..., zi]
+        if cfg.measure_neighbors:
+            with record_function("measure/neighbors"):
+                neigh = neighbor_features(labels, cfg.max_cells, cfg.neighbor_distance)
+            for k, v in neigh.items():
+                feats[f"Neighbors_{k}_{cfg.neighbor_distance}"] = v
+        cnt_f, vmin_f, vmax_f = fused["stats"]
+        if cfg.measure_quantiles or cfg.measure_texture:
+            # one per-pixel (vmin, vrange) gather shared by texture and quantiles
+            vrange_f = torch.clamp(vmax_f - vmin_f, min=1e-12)
+            g_ranges = mxu_take_t(
+                torch.cat([vmin_f, vrange_f], dim=2), _flat(labels, cfg.max_cells), cfg.max_cells
+            )
+            px_ranges = (g_ranges[:, :n_ch], g_ranges[:, n_ch:])
+        if cfg.measure_texture:
+            with record_function("measure/texture"):
+                q_mc = quantize_channels(image, labels, cfg.glcm_levels, px_ranges)
+                glcms = object_glcm_multichannel(
+                    labels, cfg.max_cells, cfg.glcm_levels, cfg.texture_scale, q_mc
+                )
+                del q_mc
+                for c in range(n_ch):
+                    har = haralick_features(glcms[:, c])  # each (B, 4, max_cells)
+                    for k in HARALICK_NAMES:
+                        for d in range(4):
+                            feats[
+                                f"Texture_{k}_{cfg.channels[c]}_{cfg.texture_scale}_{d:02d}_{cfg.glcm_levels}"
+                            ] = har[k][:, d]
+                del glcms
+        if cfg.measure_quantiles:
+            with record_function("measure/quantiles"):
+                quant = quantile_intensity_features_mc(
+                    image, labels, cfg.max_cells, stats=(cnt_f, vmin_f, vmax_f),
+                    ranges=px_ranges, integer_grid=bool(cfg.integer_intensity_grid),
+                )
+        if cfg.measure_quantiles or cfg.measure_texture:
+            del px_ranges, g_ranges
         for c in range(n_ch):
             ch_name = cfg.channels[c]
             for k, v in fused["intensity"].items():
@@ -230,10 +327,23 @@ def _measure_all(image: torch.Tensor, nuclei: torch.Tensor, cfg: FeatureConfig) 
                     feats[f"Location_{k}_{ch_name}"] = v[..., c]
                 else:
                     feats[f"Intensity_{k}_{ch_name}"] = v[..., c]
+            if cfg.measure_quantiles:
+                for k, v in quant.items():
+                    feats[f"Intensity_{k}_{ch_name}"] = v[..., c]
         if cfg.measure_edge:
             for c in range(n_ch):
                 for k, v in fused["edge"].items():
                     feats[f"Intensity_{k}_{cfg.channels[c]}"] = v[..., c]
+        if cfg.measure_radial:
+            rad = fused["radial"]
+            nr = cfg.radial_rings
+            for c in range(n_ch):
+                ch_name = cfg.channels[c]
+                for r in range(nr):
+                    for stat in ("FracAtD", "MeanFrac", "RadialCV"):
+                        feats[f"RadialDistribution_{stat}_{ch_name}_{r + 1}of{nr}"] = (
+                            rad[stat][:, :, r, c]
+                        )
         for (a, c), (corr_ab, slope_ab) in fused["corr"].items():
             pair = f"{cfg.channels[a]}_{cfg.channels[c]}"
             feats[f"Correlation_Correlation_{pair}"] = corr_ab
@@ -243,17 +353,42 @@ def _measure_all(image: torch.Tensor, nuclei: torch.Tensor, cfg: FeatureConfig) 
             feats[f"Correlation_Overlap_{na}_{nb}"] = ov
             feats[f"Correlation_K_{na}_{nb}"] = k1
             feats[f"Correlation_K_{nb}_{na}"] = k2
+        vmax_by_set[obj_name] = vmax_f
         out["objects"][obj_name] = feats
         out["image"][f"Count_{obj_name}"] = (shape["Area"] > 0).sum(dim=1).to(torch.int32)
 
+    if cfg.measure_colocalization and n_ch > 1:
+        # all three object sets at once (Cells = Nuclei + Cytoplasm)
+        with record_function("measure/colocalization"):
+            coloc_all = colocalization_features_multiset(
+                image, objects, vmax_by_set, cfg.max_cells,
+                thr_pct=cfg.coloc_threshold_pct,
+                costes_scale=cfg.costes_scale,
+                costes_fast=cfg.costes_fast,
+                integer_grid=bool(cfg.integer_intensity_grid),
+            )
+        for obj_name, coloc in coloc_all.items():
+            feats = out["objects"][obj_name]
+            for key, st in coloc.items():
+                if key == "costes_thr":
+                    continue
+                na, nb = cfg.channels[key[0]], cfg.channels[key[1]]
+                feats[f"Correlation_Manders_{na}_{nb}"] = st["M1"]
+                feats[f"Correlation_Manders_{nb}_{na}"] = st["M2"]
+                feats[f"Correlation_RWC_{na}_{nb}"] = st["RWC1"]
+                feats[f"Correlation_RWC_{nb}_{na}"] = st["RWC2"]
+                feats[f"Correlation_Costes_{na}_{nb}"] = st["C1"]
+                feats[f"Correlation_Costes_{nb}_{na}"] = st["C2"]
+
     # granularity: all sites x channels reconstruct as one batch of planes
     planes = image.permute(0, 3, 1, 2).reshape(b * n_ch, h, w)
-    gran = granularity_spectrum_cp(
-        planes, cfg.granularity_length,
-        subsample_size=cfg.granularity_subsample,
-        image_sample_size=cfg.granularity_bg_sample,
-        element_size=cfg.granularity_element_size,
-    ).reshape(b, n_ch, -1)
+    with record_function("measure/granularity"):
+        gran = granularity_spectrum_cp(
+            planes, cfg.granularity_length,
+            subsample_size=cfg.granularity_subsample,
+            image_sample_size=cfg.granularity_bg_sample,
+            element_size=cfg.granularity_element_size,
+        ).reshape(b, n_ch, -1)
     for c in range(n_ch):
         ch_name = cfg.channels[c]
         out["image"][f"Granularity_{ch_name}"] = gran[:, c]
@@ -278,8 +413,9 @@ def _measure_all(image: torch.Tensor, nuclei: torch.Tensor, cfg: FeatureConfig) 
             (b,), float(h * w), dtype=torch.float32, device=image.device
         )
     # CP Threshold-module bookkeeping: the corrected/clipped value and the raw
-    out["image"]["Threshold_Secondary"] = thr
-    out["image"]["Threshold_FinalThreshold_Cells"] = thr
+    thr_scalar = thr.mean(dim=(1, 2)) if thr.dim() == 3 else thr
+    out["image"]["Threshold_Secondary"] = thr_scalar
+    out["image"]["Threshold_FinalThreshold_Cells"] = thr_scalar
     out["image"]["Threshold_OrigThreshold_Cells"] = orig_thr
     return out
 

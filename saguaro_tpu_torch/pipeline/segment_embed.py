@@ -70,7 +70,7 @@ class SegmentEmbedEngine:
         without one the network gets seeded random weights."""
         self.cfg = cfg
         self.device = resolve_device(device)
-        self.cell_model = init_cellpose(cfg.cellpose, seed=seed)
+        self.cell_model = init_cellpose(cfg.cellpose, seed=seed, device=self.device)
         if cellpose_state_dict is not None:
             missing, unexpected = self.cell_model.load_state_dict(
                 cellpose_state_dict, strict=False

@@ -132,8 +132,9 @@ def test_tile_grid_and_network_shape():
 
 def test_seeded_init_is_deterministic():
     cfg = port.CellposeConfig(features=FEATURES, tile=64)
-    a, b = port.init_cellpose(cfg, seed=3), port.init_cellpose(cfg, seed=3)
-    c = port.init_cellpose(cfg, seed=4)
+    a = port.init_cellpose(cfg, seed=3, device="cpu")
+    b = port.init_cellpose(cfg, seed=3, device="cpu")
+    c = port.init_cellpose(cfg, seed=4, device="cpu")
     sa, sb, sc_ = a.state_dict(), b.state_dict(), c.state_dict()
     key = "downsample.down.res_down_0.conv.conv_0.2.weight"
     assert torch.equal(sa[key], sb[key]) and not torch.equal(sa[key], sc_[key])

@@ -1,0 +1,138 @@
+"""Thresholded colocalization (Manders, RWC, Costes): the port (plain forms
+on the CPU) against the reference, per site of a batch.
+
+* dense ranks, rank tables and distinct-value counts: exact (integer
+  counts and cumsums);
+* Costes thresholds: the first channel's threshold (the stopping grid
+  step) exact: the Pearson statistic of each step comes from exact joint
+  counts and its sign decides the stop (the port evaluates it exactly in
+  integer moments, the reference in f32 sums; on these fixtures its
+  rounding flips no sign); the second channel's is the
+  regression line at that step, whose coefficients are f32 sums over the
+  pixels in another order, 1e-5 relative;
+* the pass E sums: 2**-15 of the per-label sum of |lane| (the reference
+  sums through a bf16 hi/lo split, the port in f32);
+* the features: ratios of those sums, 1e-4 relative + 1e-4 of the column's
+  largest value (``torch_data.feature_tolerance``)."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from saguaro_tpu.kernels import colocalization as ref
+from saguaro_tpu_torch.kernels import colocalization as port
+
+from .torch_data import blob_sites, feature_tolerance
+
+MC = 16
+PAIRS = ((0, 1), (0, 2), (1, 2))
+
+
+@pytest.fixture(scope="module")
+def sites():
+    img, lab = blob_sites(n_sites=2, h=48, w=56, n_ch=3, n_cells=9, seed=51)
+    # correlated channels so the Costes descent walks several steps
+    img[..., 2] = np.round(0.6 * img[..., 1] + 0.4 * img[..., 2])
+    cyto = np.where((lab == 0) & (np.roll(lab, 2, axis=2) > 0), np.roll(lab, 2, axis=2), 0)
+    return img, lab, cyto.astype(np.int32)
+
+
+def test_dense_ranks_exact(sites):
+    img, lab, _ = sites
+    b, h, w, n_ch = img.shape
+    codes = img.reshape(b, -1, n_ch).astype(np.int32)
+    inside = lab.reshape(b, -1) > 0
+    hi, lo = torch.from_numpy(codes >> 8), torch.from_numpy(codes & 0xFF)
+    cnts = port._value_count_tables(hi, lo, [torch.from_numpy(inside)])
+    tabs, nds = zip(*(port._rank_table(cnts[:, c, ..., 0]) for c in range(n_ch)))
+    ranks = port._pick_rows_mc(hi, lo, torch.stack(tabs, dim=1)[..., None])[..., 0]
+    for s in range(b):
+        r_ref, nd_ref = ref.dense_rank_images(jnp.asarray(codes[s]), jnp.asarray(inside[s]))
+        np.testing.assert_array_equal(ranks[s].numpy(), np.asarray(r_ref))
+        np.testing.assert_array_equal(torch.stack(nds, 1)[s].numpy(), np.asarray(nd_ref))
+
+
+@pytest.mark.parametrize("scale,fast", [(255, True), (255, False), (63, True)])
+def test_costes_thresholds_exact(sites, scale, fast):
+    img, lab, _ = sites
+    b, n_ch = len(img), img.shape[-1]
+    vals = (img.reshape(b, -1, n_ch) / np.float32(65535.0) * np.float32(40.0)).astype(np.float32)
+    vals = np.minimum(vals, np.float32(1.0))
+    inside = lab.reshape(b, -1) > 0
+    tf, ts = port.costes_thresholds(torch.from_numpy(vals), torch.from_numpy(inside), PAIRS,
+                                    scale=scale, fast=fast)
+    for s in range(b):
+        rf, rs = ref.costes_thresholds(jnp.asarray(vals[s]), jnp.asarray(inside[s]), PAIRS,
+                                       scale=scale, fast=fast)
+        np.testing.assert_array_equal(tf[s].numpy(), np.asarray(rf))
+        np.testing.assert_allclose(ts[s].numpy(), np.asarray(rs), rtol=1e-5, atol=1e-7)
+
+
+def test_coloc_threshold_sums(sites):
+    img, lab, _ = sites
+    b, h, w, n_ch = img.shape
+    rng = np.random.default_rng(5)
+    vr = img.reshape(b, -1, n_ch)
+    ranks = rng.integers(0, 500, vr.shape).astype(np.float32)
+    tff = rng.uniform(100, 300, (b, MC, n_ch)).astype(np.float32)
+    thr_f = rng.uniform(100, 300, (b, 3)).astype(np.float32)
+    thr_s = rng.uniform(100, 300, (b, 3)).astype(np.float32)
+    inv_r = np.full((b, 3), 1.0 / 500.0, np.float32)
+    flat = lab.reshape(b, -1)
+    got = port.coloc_threshold_sums(*(torch.from_numpy(a) for a in (flat, vr, ranks, tff, thr_f,
+                                                                    thr_s, inv_r)), MC).numpy()
+    for s in range(b):
+        seg = np.where((flat[s] > 0) & (flat[s] < MC), flat[s], 0)
+        inside = (flat[s] > 0).astype(np.float32)
+        want = np.asarray(ref.coloc_threshold_sums(
+            jnp.asarray(seg), jnp.asarray(inside), jnp.asarray(vr[s]), jnp.asarray(ranks[s]),
+            jnp.asarray(tff[s]), jnp.asarray(thr_f[s]), jnp.asarray(thr_s[s]), jnp.asarray(inv_r[s]),
+            PAIRS, MC))
+        assert got[s].shape == want.shape == (MC, n_ch + 8 * len(PAIRS))
+        mag = np.zeros_like(want, np.float64)
+        np.add.at(mag, seg, np.abs(vr[s]).sum(1, keepdims=True).astype(np.float64))
+        assert np.all(np.abs(got[s] - want) <= 2.0**-15 * mag + 1e-6)
+
+
+@pytest.mark.parametrize("integer_grid", [True, False])
+def test_multiset_matches_reference(sites, integer_grid):
+    img, nuc, cyto = sites
+    if not integer_grid:
+        img = img * np.float32(0.37)
+    cells = np.where(cyto > 0, cyto, nuc)
+    sets = {"Cells": cells, "Nuclei": nuc, "Cytoplasm": cyto}
+    vmax = {}
+    for nm, l in sets.items():
+        v = np.full((len(img), MC, img.shape[-1]), -np.inf, np.float32)
+        for s in range(len(img)):
+            for k in np.unique(l[s][(l[s] > 0) & (l[s] < MC)]):
+                v[s, k] = img[s][l[s] == k].max(0)
+        vmax[nm] = v
+    got = port.colocalization_features_multiset(
+        torch.from_numpy(img), {k: torch.from_numpy(v) for k, v in sets.items()},
+        {k: torch.from_numpy(v) for k, v in vmax.items()}, MC, integer_grid=integer_grid)
+    for s in range(len(img)):
+        want = ref.colocalization_features_multiset(
+            jnp.asarray(img[s]), {k: jnp.asarray(v[s]) for k, v in sets.items()},
+            {k: jnp.asarray(v[s]) for k, v in vmax.items()}, MC, integer_grid=integer_grid)
+        assert set(got) == set(want)
+        for nm in want:
+            for key, st in want[nm].items():
+                if key == "costes_thr":
+                    np.testing.assert_array_equal(got[nm][key][0][s].numpy(), np.asarray(st[0]))
+                    np.testing.assert_allclose(got[nm][key][1][s].numpy(), np.asarray(st[1]),
+                                               rtol=1e-5, atol=1e-7)
+                    continue
+                for stat, r in st.items():
+                    r = np.asarray(r, np.float64)
+                    g = got[nm][key][stat][s].numpy()
+                    tol = feature_tolerance(stat, r, None, *img.shape[1:3])
+                    assert np.all(np.abs(g - r) <= tol), (nm, key, stat, r, g)
+
+
+def test_costes_fine_scale_not_ported(sites):
+    img, lab, _ = sites
+    with pytest.raises(NotImplementedError, match="costes_fine"):
+        port.colocalization_features(torch.from_numpy(img), torch.from_numpy(lab),
+                                     torch.zeros((2, MC, 3)), MC, costes_fine_scale=65535)

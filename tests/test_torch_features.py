@@ -1,14 +1,21 @@
-"""measure_site_batch at the slice's FeatureConfig (texture, quantile,
-radius, convex, neighbour, colocalization and radial families off): the
-port (plain forms on the CPU) against the reference on a 2-site batch —
-the same 4 tables, column sets and ObjectNumber rows, values within
-``torch_data.feature_tolerance``."""
+"""measure_site_batch: the port (plain forms on the CPU) against the
+reference on a 2-site batch — the same 4 tables, column sets and
+ObjectNumber rows, values within ``torch_data.feature_tolerance`` — at the
+reference's default FeatureConfig (only channels and max_cells set), at
+its centroid radial binning, adaptive threshold scope and smoothing at
+binarisation, and at a config with the texture, quantile, radius, convex,
+neighbour, colocalization and radial families off.
+
+The reference measures a batch under ``vmap``; at adaptive scope that
+program does not run on XLA:CPU (its batched bf16 gather product has no CPU
+kernel), so that case takes the reference's single-site ``measure_site``."""
 
 import numpy as np
 import pytest
 import torch
 
 from saguaro_tpu.pipeline.features import FeatureConfig as RefFeatureConfig
+from saguaro_tpu.pipeline.features import measure_site as ref_measure_site
 from saguaro_tpu.pipeline.features import measure_site_batch as ref_measure
 from saguaro_tpu_torch.pipeline.features import FeatureConfig, measure_site, measure_site_batch
 
@@ -68,3 +75,28 @@ def test_other_threshold_methods_and_distance_growth(batch, method):
     want = ref_measure(img[:1], lab[:1], RefFeatureConfig(**kw))
     got = measure_site_batch(img[:1], lab[:1], FeatureConfig(**kw), device="cpu")
     assert_tables_close(want[0], got[0], H, W)
+
+
+DEFAULT_CASES = {
+    "default": {},
+    "centroid": dict(radial_binning="centroid"),
+    # the default 50-pixel window exceeds half of this 64 x 72 site
+    "adaptive": dict(secondary_threshold_scope="adaptive", secondary_adaptive_window=20),
+    "smoothing": dict(secondary_threshold_smoothing=2.0),
+}
+
+
+@pytest.mark.parametrize("case", list(DEFAULT_CASES))
+def test_default_config_matches_reference(batch, case):
+    img, lab = batch
+    kw = dict(channels=("DNA", "GFP", "ER"), max_cells=16, **DEFAULT_CASES[case])
+    if case == "adaptive":
+        want = [ref_measure_site(img[s], lab[s], RefFeatureConfig(**kw), image_number=s + 1)
+                for s in range(len(img))]
+    else:
+        want = ref_measure(img, lab, RefFeatureConfig(**kw))
+    got = measure_site_batch(img, lab, FeatureConfig(**kw), device="cpu")
+    for g, r in zip(got, want):
+        assert_tables_close(r, g, H, W)
+        assert any(c.startswith("Texture_") for c in g["Cells"].columns)
+        assert "Metadata_BoundaryCompactionOverflow_Cells" in g["Image"].columns

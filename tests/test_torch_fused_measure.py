@@ -1,13 +1,16 @@
 """fused_object_features: the port (plain forms on the CPU) against the
-reference, every key of every family the slice computes, per site of a
-2-site batch. Tolerances per column: ``torch_data.feature_tolerance``."""
+reference, every key of every family, per site of a 2-site batch, the
+radial-distribution family with CP ring/wedge codes and with centroid
+binning. Tolerances per column: ``torch_data.feature_tolerance``."""
 
+import jax.numpy as jnp
 import numpy as np
 import pandas as pd
 import pytest
 import torch
 
 from saguaro_tpu.kernels.fused_measure import fused_object_features as ref_fused
+from saguaro_tpu.kernels.radial import cp_ring_wedge as ref_ring_wedge
 from saguaro_tpu_torch.kernels.fused_measure import fused_object_features
 
 from .torch_data import blob_sites, feature_tolerance
@@ -78,7 +81,28 @@ def test_fused_object_features_matches_reference(sites, moments, zernike, edge):
             assert not bad.any(), (col, w[col][bad], g[col][bad])
 
 
-def test_radial_lanes_not_ported(sites):
+@pytest.mark.parametrize("binning,n_rings", [("cp", 4), ("centroid", 4), ("cp", 3)])
+def test_radial_family_matches_reference(sites, binning, n_rings):
     img, lab = sites
-    with pytest.raises(NotImplementedError, match="radial"):
-        fused_object_features(torch.from_numpy(img), torch.from_numpy(lab), MC)
+    b, h, w, n_ch = img.shape
+    rw = None
+    if binning == "cp":
+        rw = np.stack([np.asarray(ref_ring_wedge(jnp.asarray(lab[s]), MC, n_rings, 64))
+                       for s in range(b)])
+    got = fused_object_features(
+        torch.from_numpy(img), torch.from_numpy(lab), MC, n_rings=n_rings,
+        ring_wedge=None if rw is None else torch.from_numpy(rw),
+    )["radial"]
+    for s in range(b):
+        want = ref_fused(img[s], lab[s], MC, n_rings=n_rings,
+                         ring_wedge=None if rw is None else jnp.asarray(rw[s]))["radial"]
+        assert set(got) == set(want) == {"FracAtD", "MeanFrac", "RadialCV"}
+        for k, v in want.items():
+            v = np.asarray(v, np.float64)
+            assert got[k][s].shape == v.shape == (MC, n_rings, n_ch)
+            for r in range(n_rings):
+                for c in range(n_ch):
+                    col = v[:, r, c]
+                    tol = feature_tolerance(f"RadialDistribution_{k}", col, None, h, w)
+                    bad = ~(np.abs(got[k][s, :, r, c].numpy() - col) <= tol)
+                    assert not bad.any(), (k, r, c, np.nonzero(bad)[0], col[bad])

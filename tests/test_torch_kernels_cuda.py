@@ -1,4 +1,4 @@
-"""The CUDA kernels K1-K4 against their plain twins on the same CUDA
+"""The CUDA kernels K1-K6 against their plain twins on the same CUDA
 tensors: K1 and K2 exactly; K3 to 1e-5 of the per-label sum of |value|
 (f32 atomics sum in a run-dependent order); K4 against its plain form in
 f64, to 1e-5 of each lane's rounding scale (``magnitude=True``: the sum of
@@ -91,4 +91,78 @@ def test_lane_kernels(cuda, n_ch):
     torch.cuda.synchronize()
     want = sc.lane_sums_c_plain(*args, dtype=f64)
     scale = sc.lane_sums_c_plain(*args, magnitude=True, dtype=f64)
+    assert torch.all((got.double() - want).abs() <= 1e-5 * scale + 1e-6)
+
+
+@pytest.mark.cuda
+def test_counts_kernel_exact_at_glcm_planes(cuda):
+    """20 code planes of 136 triangular codes (texture at 5 channels x 4
+    directions) in one call: more planes than one block stages."""
+    rng = np.random.default_rng(6)
+    lab = torch.from_numpy(rng.integers(-1, 520, (2, 60000)).astype(np.int32)).to(cuda)
+    codes = torch.from_numpy(rng.integers(-1, 137, (2, 20, 60000)).astype(np.int32)).to(cuda)
+    sizes = (136,) * 20
+    got = sc.seg_counts(lab, codes, sizes, 512)
+    torch.cuda.synchronize()
+    assert torch.equal(got, sc.counts_plain(lab, codes, sizes, 512))
+
+
+@pytest.mark.cuda
+def test_edt_sweep_kernel_exact(cuda):
+    from saguaro_tpu_torch.kernels.shape_extra import _edt_sweep_inputs
+
+    _, lab = blob_sites(n_sites=2, h=150, w=300, n_ch=1, n_cells=40, seed=7)
+    v2, d2 = (t.contiguous() for t in _edt_sweep_inputs(torch.from_numpy(lab).to(cuda)))
+    for radius in (1, 64):
+        got = sc.seg_edt_sweep(v2, d2, radius)
+        torch.cuda.synchronize()
+        assert torch.equal(got, sc.edt_sweep_plain(v2, d2, radius))
+
+
+@pytest.mark.cuda
+def test_pick2_kernel_exact(cuda):
+    rng = np.random.default_rng(8)
+    hi = torch.from_numpy(rng.integers(-1, 257, (2, 30000, 3)).astype(np.int32)).to(cuda)
+    lo = torch.from_numpy(rng.integers(0, 256, (2, 30000, 3)).astype(np.int32)).to(cuda)
+    tables = torch.from_numpy(
+        rng.integers(0, 65536, (2, 3, 256, 256, 2)).astype(np.float32)).to(cuda)
+    got = sc.seg_pick2(hi, lo, tables)
+    torch.cuda.synchronize()
+    assert torch.equal(got, sc.pick2_plain(hi, lo, tables))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_ch", [1, 5])
+def test_radial_sums_kernel(cuda, n_ch):
+    img, lab = blob_sites(n_sites=2, h=120, w=130, n_ch=n_ch, n_cells=30, seed=9, overflow_id=600)
+    rng = np.random.default_rng(9)
+    codes = rng.integers(0, 33, lab.shape).astype(np.int32)  # 32 = excluded
+    args = (torch.from_numpy(lab).to(cuda).reshape(2, -1),
+            torch.from_numpy(codes).to(cuda).reshape(2, -1),
+            torch.from_numpy(img).to(cuda).reshape(2, -1, n_ch))
+    got = sc.seg_radial_sums(*args, 512, 32)
+    torch.cuda.synchronize()
+    want = sc.radial_sums_plain(*args, 512, 32, dtype=torch.float64)
+    assert torch.equal(got[..., 0].double(), want[..., 0])  # pixel counts
+    assert torch.all((got.double() - want).abs() <= 1e-5 * want.abs() + 1e-6)
+
+
+@pytest.mark.cuda
+def test_lane_sums_e_kernel(cuda):
+    n_ch = 5
+    img, lab = blob_sites(n_sites=2, h=120, w=130, n_ch=n_ch, n_cells=30, seed=10, overflow_id=600)
+    rng = np.random.default_rng(10)
+    n = lab.shape[1] * lab.shape[2]
+    n_pairs = n_ch * (n_ch - 1) // 2
+    ranks = rng.integers(0, 3000, (2, n, n_ch)).astype(np.float32)
+    tff = rng.uniform(100, 400, (2, 512, n_ch)).astype(np.float32)
+    consts = np.concatenate([rng.uniform(100, 400, (2, 2, n_pairs)),
+                             np.full((2, 1, n_pairs), 1.0 / 3000.0)], axis=1).astype(np.float32)
+    args = [torch.from_numpy(a).to(cuda) for a in
+            (lab.reshape(2, n), img.reshape(2, n, n_ch), ranks, tff, consts)]
+    got = sc.seg_lane_sums_e(*args, 512)
+    torch.cuda.synchronize()
+    want = sc.lane_sums_e_plain(*args, 512, dtype=torch.float64)
+    scale = sc.lane_sums_e_plain(*args, 512, magnitude=True, dtype=torch.float64)
+    assert got.shape == (2, 512, n_ch + 8 * n_pairs)
     assert torch.all((got.double() - want).abs() <= 1e-5 * scale + 1e-6)

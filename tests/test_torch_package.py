@@ -1,6 +1,7 @@
 """Package boundaries of the PyTorch port: it imports neither JAX nor the
 reference package, its entry points refuse to fall back to the CPU, its
-CUDA wrappers refuse CPU tensors, and unported families are refused."""
+CUDA wrappers refuse CPU tensors, every family of the default config is
+measured, and the one unported option is refused."""
 
 import ast
 import os
@@ -99,7 +100,15 @@ def _entry_job():
     run_feature_extraction_job(pd.DataFrame(), "x", "y", ["DNA"], lambda im: im)
 
 
-@pytest.mark.parametrize("entry", [_entry_measure, _entry_engine, _entry_masks, _entry_job])
+def _entry_cellpose():
+    from saguaro_tpu_torch.models.cellpose import init_cellpose
+
+    init_cellpose()
+
+
+@pytest.mark.parametrize(
+    "entry", [_entry_measure, _entry_engine, _entry_masks, _entry_job, _entry_cellpose]
+)
 def test_entry_point_without_device_raises_when_cuda_absent(monkeypatch, entry):
     _no_cuda(monkeypatch)
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -111,6 +120,7 @@ def _cpu_wrapper_calls():
     img = torch.zeros((1, 4, 2, 1))
     lab3 = torch.zeros((1, 4, 2), dtype=torch.int32)
     bnd = torch.zeros((1, 4, 2), dtype=torch.uint8)
+    img3 = torch.zeros((1, 8, 2))
     return {
         "seg_counts": lambda: sc.seg_counts(lab, torch.zeros((1, 1, 8), dtype=torch.int32), (1,), 4),
         "seg_take_t": lambda: sc.seg_take_t(torch.zeros((1, 4, 2)), lab, 4),
@@ -118,6 +128,15 @@ def _cpu_wrapper_calls():
         "seg_lane_sums_a": lambda: sc.seg_lane_sums_a(lab3, img, torch.zeros((1, 4, 2)), bnd, 4, True),
         "seg_lane_sums_c": lambda: sc.seg_lane_sums_c(
             lab3, img, bnd, torch.zeros((1, 4, 5)), torch.zeros((30, 10)), 4, True, True, True
+        ),
+        "seg_lane_sums_e": lambda: sc.seg_lane_sums_e(
+            lab, img3, img3, torch.zeros((1, 4, 2)), torch.zeros((1, 3, 1)), 4
+        ),
+        "seg_radial_sums": lambda: sc.seg_radial_sums(lab, lab, img3, 4, 8),
+        "seg_edt_sweep": lambda: sc.seg_edt_sweep(torch.zeros((1, 4, 2)), torch.zeros((1, 4, 2)), 2),
+        "seg_pick2": lambda: sc.seg_pick2(
+            torch.zeros((1, 8, 1), dtype=torch.int32), torch.zeros((1, 8, 1), dtype=torch.int32),
+            torch.zeros((1, 1, 256, 256, 1)),
         ),
     }
 
@@ -130,30 +149,48 @@ def test_cuda_wrapper_refuses_cpu_tensors(name):
     assert sc.LAUNCHES == before
 
 
-@pytest.mark.parametrize(
-    "flag,family",
-    [
-        ("measure_texture", "texture"),
-        ("measure_quantiles", "quantiles"),
-        ("measure_radius", "radii"),
-        ("measure_convex", "convex"),
-        ("measure_neighbors", "neighbors"),
-        ("measure_radial", "radial"),
-        ("measure_colocalization", "colocalization"),
-        ("secondary_threshold_scope", "adaptive"),
-        ("secondary_threshold_smoothing", "smoothing"),
-    ],
-)
+@pytest.mark.parametrize("flag,family", [("costes_fine_scale", "costes")])
 def test_unported_family_raises_naming_it(flag, family):
     import dataclasses
 
-    value = {"secondary_threshold_scope": "adaptive", "secondary_threshold_smoothing": 1.0}.get(flag, True)
-    cfg = dataclasses.replace(_slice_cfg(), **{flag: value})
+    cfg = dataclasses.replace(_slice_cfg(), **{flag: 65535})
     with pytest.raises(NotImplementedError, match=family):
         measure_site_batch(
             np.zeros((1, 16, 16, 2), np.float32), np.zeros((1, 16, 16), np.int32), cfg,
             device="cpu",
         )
+
+
+@pytest.mark.parametrize(
+    "flag,value,column",
+    [
+        ("measure_texture", True, "Texture_Contrast_GFP_3_00_16"),
+        ("measure_quantiles", True, "Intensity_MedianIntensity_GFP"),
+        ("measure_radius", True, "AreaShape_MedianRadius"),
+        ("measure_convex", True, "AreaShape_Solidity"),
+        ("measure_neighbors", True, "Neighbors_NumberOfNeighbors_5"),
+        ("measure_radial", True, "RadialDistribution_RadialCV_GFP_1of4"),
+        ("measure_colocalization", True, "Correlation_Costes_DNA_GFP"),
+        ("secondary_threshold_scope", "adaptive", "AreaShape_Area"),
+        ("secondary_threshold_smoothing", 1.0, "AreaShape_Area"),
+    ],
+)
+def test_each_default_family_is_measured(flag, value, column):
+    """Each family (or threshold option) alone on ``_slice_cfg`` (every
+    optional family off) adds its columns to the object tables; the values
+    are held against the reference in test_torch_features and the
+    per-module tests."""
+    import dataclasses
+
+    from .torch_data import blob_sites
+
+    img, lab = blob_sites(n_sites=1, h=40, w=44, n_ch=2, n_cells=5, seed=2)
+    cfg = dataclasses.replace(_slice_cfg(), secondary_adaptive_window=12, **{flag: value})
+    base = measure_site_batch(img, lab, _slice_cfg(), device="cpu")[0]
+    got = measure_site_batch(img, lab, cfg, device="cpu")[0]
+    assert column in got["Cells"].columns
+    assert len(got["Cells"]) == len(base["Cells"]) > 0
+    assert np.isfinite(got["Cells"].select_dtypes("number").to_numpy(np.float64)).all()
 
 
 def test_pallas_dispatch_pin_refused():

@@ -58,7 +58,9 @@ def blob_sites(
 # The reference sums every payload through a bf16 hi/lo split (~16
 # significant bits per value, error <= 2**-16 |v|); the port sums f32.
 #  * exact: counts, bounding boxes, pixel locations, min/max intensities,
-#    Euler numbers (integers or selected values, no arithmetic);
+#    Euler numbers (integers or selected values, no arithmetic), the
+#    median and maximum radius (order statistics of integer squared
+#    distances), neighbour counts and the hull's dropped boundary pixels;
 #  * Perimeter: 2**-15 relative (the reference's split of sqrt(2) weights);
 #  * Spatial/Central/Normalized moments: 1e-5 of the row's
 #    Area * R**(p+q) (R = the larger bounding-box side), the magnitude of
@@ -74,6 +76,7 @@ def blob_sites(
 _EXACT = (
     r"AreaShape_Area$", r"BoundingBox", r"MaxIntensity_[XY]_", r"Intensity_M(in|ax)Intensity",
     r"EulerNumber", r"ObjectNumber", r"Parent_", r"^Count_", r"ImageNumber", r"TotalArea",
+    r"(Median|Maximum)Radius$", r"NumberOfNeighbors", r"BoundaryCompactionOverflow",
 )
 
 
