@@ -2,24 +2,32 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels (K1-K6, ``saguaro_tpu_torch/csrc``) from the
-checkout, holds each one against its plain PyTorch twin at the feature-
-extraction path's shapes (8 sites of 1080 x 1080, 5 channels,
-max_cells=512) and times both, then drives that path end to end through
-the user-facing entry points: the full-width CPnet segmentation engine on
-8 synthetic uint16 sites, mask recovery on ground-truth flows (untrained
-weights find no cells), ``measure_site_batch`` at the reference's default
-FeatureConfig (every family on), and ``run_feature_extraction_job`` on a
-2-site plate. It fails unless every kernel was launched by that path, and
-prints one JSON line of per-kernel numbers, the card's name and power
-limit, and last ``{"ok": true, "device": {...}}``. Without a CUDA device,
-or without the package beside it, it exits non-zero and prints no result.
+Builds the port's CUDA kernels (K1-K7, ``saguaro_tpu_torch/csrc``) from the
+checkout, holds each one against its plain PyTorch twin at the shapes its
+path gives it and times both: K1-K6 at the feature-extraction path's (8
+sites of 1080 x 1080, 5 channels, max_cells=512), K7 at the pixel path's
+(16 raw 2160 x 2160 uint16 fields re-binned to 1080 x 1080, plus an
+upsampling and an odd non-square case). Then it drives both paths end to
+end through the user-facing entry points. Feature extraction: the
+full-width CPnet segmentation engine on 8 synthetic uint16 sites, mask
+recovery on ground-truth flows (untrained weights find no cells),
+``measure_site_batch`` at the reference's default FeatureConfig (every
+family on), and ``run_feature_extraction_job`` on a 2-site plate. Pixel
+stages: ``run_max_projection``, ``run_rebin``, the ``estimate_illum`` CLI
+and ``run_illumination_qc`` on a temporary plate of raw 2160 x 2160 uint16
+z-stacks (4 fields x 5 channels x 3 planes). It fails unless each path
+launched every kernel it runs, and prints one JSON line of per-kernel
+numbers, the card's name and power limit, and last ``{"ok": true,
+"device": {...}}``. Without a CUDA device, or without the package beside
+it, it exits non-zero and prints no result.
 
     python3 chip_smoke.py --profile
 
 also runs each stage once more, warmed up, under torch.profiler and logs
 its device-busy share, the ops with the most device time and, for measure,
-the host and device time of each family's ``measure/<family>`` range.
+the host and device time of each family's ``measure/<family>`` range; and
+the pixel path once more, with its device-busy share of the stages' wall
+time.
 """
 
 from __future__ import annotations
@@ -39,6 +47,10 @@ SIZE = 1080
 N_SITES = 8
 CHANNELS = ("DNA", "GFP", "ER", "Mito", "AGP")
 MAX_CELLS = 512
+RAW = 2160        # raw field side, re-binned to RAW // 2 (BASELINE.md:22)
+PIX_BATCH = 16    # the re-binning and projection drivers' default batch
+PIX_FIELDS = 4
+PIX_PLANES = 3
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 F32_OPS_PER_S = 67e12       # H100 SXM f32 outside the tensor cores
 PALLAS = "saguaro_tpu/kernels/segment_pallas.py"
@@ -248,6 +260,8 @@ def check_kernels(images, labels, dev):
     del want, got, pw, bnd
 
     check_family_kernels(img, lab, seg, entry)
+    del img, lab, seg
+    check_resample(dev, entry)
     return out, counters
 
 
@@ -434,6 +448,212 @@ def check_counts_by_value(hi, lo, vn, insides, check):
     check("seg_counts[rank values]", hi[:, :, 0], [(lo[:, :, 0], m, 256) for m in masks], 256)
     check("seg_counts[costes joint]", code_s[:, :, 0],
           [(code_s[:, :, c], m, 256) for c in range(1, vn.shape[2]) for m in masks], 256)
+
+
+def hold_resample(name, imgs, out_shape):
+    """K7 on ``imgs`` against its plain form: the f32 sums to SUM_RTOL of
+    each output's sum of |w * x| (the plain form in f64), and for integer
+    inputs the results after PIL's rounding within 1 unit. Returns the
+    largest difference of the final results (integer units, or f32)."""
+    import torch
+
+    from saguaro_tpu_torch.kernels import resample as rs
+
+    got = rs.lanczos_resample(imgs, out_shape)
+    want = rs.resize_plain(imgs, out_shape, dtype=torch.float64)
+    scale = rs.resize_plain(imgs, out_shape, magnitude=True, dtype=torch.float64)
+    err = (got.double() - want).abs()
+    ratio = err / (SUM_RTOL * scale + 1e-6)
+    if not bool((ratio <= 1.0).all()):
+        raise AssertionError(f"K7 {name}: {int((ratio > 1).sum())} sums out of tolerance, "
+                             f"worst {float(ratio.max()):.3g} of it")
+    if imgs.dtype.is_floating_point:
+        diff = float(err.max())
+    else:
+        final = rs._cast(got, imgs.dtype).to(torch.int32)
+        plain = rs._cast(rs.resize_plain(imgs, out_shape), imgs.dtype).to(torch.int32)
+        diff = float((final - plain).abs().max())
+        if diff > 1:
+            raise AssertionError(f"K7 {name}: rounded results differ by {diff} units")
+    log(f"K7 {name}: sums within {float(ratio.max()):.3g} of the tolerance, results within "
+        f"{diff:.3g} of the plain form's")
+    return diff
+
+
+def check_resample(dev, entry):
+    """K7 at the pixel path's run point (16 raw 2160^2 uint16 fields ->
+    1080^2), on f32 input, upsampling uint8 and an odd non-square batch of
+    one, each against its plain form; timed at the run point beside the
+    dense matmul pair that is the reference's XLA contract."""
+    import torch
+
+    from saguaro_tpu_torch.kernels import resample as rs
+
+    g = torch.Generator(device=dev).manual_seed(7)
+
+    def raw(shape, high, dtype):
+        return torch.randint(0, high, shape, generator=g, device=dev, dtype=torch.int32).to(dtype)
+
+    out = (RAW // 2, RAW // 2)
+    imgs = raw((PIX_BATCH, RAW, RAW), 65536, torch.uint16)
+    err = hold_resample("16 x 2160^2 uint16 -> 1080^2", imgs, out)
+    hold_resample("4 x 2160^2 f32 -> 1080^2", imgs[:4].float() * 0.37 - 1.0e4, out)
+    hold_resample("2 x 540x720 uint8 -> 1080x1440", raw((2, 540, 720), 256, torch.uint8),
+                  (1080, 1440))
+    hold_resample("1 x 1001x1537 uint16 -> 433x761", raw((1, 1001, 1537), 65536, torch.uint16),
+                  (433, 761))
+    # the separable work: each output row's taps over every input column,
+    # then each output's taps along the row (multiply + add each)
+    _, ny, _ = rs.axis_windows(RAW, out[0])
+    _, nx, _ = rs.axis_windows(RAW, out[1])
+    ops = 2.0 * PIX_BATCH * (float(ny.sum()) * RAW + out[0] * float(nx.sum()))
+    xf = imgs.float()
+    ry, rx = (torch.as_tensor(m, device=dev) for m in rs.lanczos_matrices((RAW, RAW), out))
+    entry("lanczos_resize", "saguaro_tpu_torch/csrc/lanczos.cu",
+          "saguaro_tpu/kernels/resample_pallas.py:125", err,
+          lambda: rs.lanczos_resample(imgs, out), lambda: rs.resize_plain(imgs, out),
+          n_bytes=2.0 * PIX_BATCH * RAW * RAW + 4.0 * PIX_BATCH * out[0] * out[1], n_ops=ops,
+          library=lambda: torch.matmul(torch.matmul(ry, xf), rx.T))
+
+
+def run_pixel_path(dev, size=RAW, n_fields=PIX_FIELDS, n_planes=PIX_PLANES, seed=11):
+    """The pixel stages through their user-facing entry points on a
+    temporary plate of raw uint16 z-stacks (n_fields x 5 channels x
+    n_planes TIFFs of size^2): ``run_max_projection``, ``run_rebin`` to
+    (size/2)^2, the ``estimate_illum`` CLI on the re-binned images and
+    ``run_illumination_qc`` with those functions, each at its default
+    batch. Checks the projections exactly against ``np.maximum.reduce``, the
+    re-binned files' size, dtype and place, the illumination functions and
+    every QC column. Returns seconds per image of each stage, host I/O
+    included."""
+    import pandas as pd
+
+    from saguaro_tpu_torch.cli.estimate_illum import main as estimate_illum
+    from saguaro_tpu_torch.io import tiff
+    from saguaro_tpu_torch.pipeline.pixel_stages import (
+        run_illumination_qc,
+        run_max_projection,
+        run_rebin,
+    )
+
+    res = size // 2
+    fields, _ = synthetic_sites(n_fields, size, seed)
+    rng = np.random.default_rng(seed + 1)
+    n_img = n_fields * len(CHANNELS)
+    secs = {}
+    with tempfile.TemporaryDirectory() as root:
+        os.makedirs(os.path.join(root, "Images"))
+        rows, want = [], {}
+        for f in range(n_fields):
+            planes = {ch: [] for ch in CHANNELS}
+            for p in range(n_planes):
+                for c, ch in enumerate(CHANNELS):
+                    plane = fields[f, ..., c] + rng.integers(0, 64, (size, size), dtype=np.uint16)
+                    name = f"F{f}_{ch}_p{p}.tiff"
+                    tiff.imwrite(os.path.join(root, "Images", name), plane)
+                    planes[ch].append(plane)
+                    rows.append({"PlateID": "P1", "Image_PathName": "Images", "Image_FileName": name})
+            for ch in CHANNELS:
+                want[f"F{f}_{ch}_p0.tiff"] = np.maximum.reduce(planes[ch])
+        del fields, planes
+        pd.DataFrame(rows).to_csv(os.path.join(root, "index.csv"), index=False)
+
+        t0 = time.perf_counter()
+        n = run_max_projection(root, "index.csv", len(CHANNELS), n_planes, root, device=dev)
+        secs["max_projection"] = (time.perf_counter() - t0) / n_img
+        if n != n_img:
+            raise AssertionError(f"max projection wrote {n} of {n_img} images")
+        for name, proj in want.items():
+            if not np.array_equal(tiff.imread(os.path.join(root, "ImagesStacked", name)), proj):
+                raise AssertionError(f"projection {name} differs from np.maximum.reduce")
+
+        t0 = time.perf_counter()
+        n = run_rebin(root, "ImagesStacked/", resolution=res, device=dev)
+        secs["rebin"] = (time.perf_counter() - t0) / n_img
+        binned = os.path.join(root, "Image_binnedsStacked")  # the reference's literal rewrite
+        if n != n_img or sorted(os.listdir(binned)) != sorted(want):
+            raise AssertionError(f"re-binning wrote {n} images: {sorted(os.listdir(binned))}")
+        for name in want:
+            img = tiff.imread(os.path.join(binned, name))
+            if img.shape != (res, res) or img.dtype != np.uint16:
+                raise AssertionError(f"re-binned {name}: {img.shape} {img.dtype}")
+
+        load_data = os.path.join(root, "load_data.csv")
+        pd.DataFrame([{"Metadata_Plate": "P1", "Metadata_Well": f"A{f + 1:02}", "Metadata_Site": 1,
+                       **{f"FileName_{ch}": f"F{f}_{ch}_p0.tiff" for ch in CHANNELS}}
+                      for f in range(n_fields)]).to_csv(load_data, index=False)
+        illum_dir = os.path.join(root, "illum")
+        t0 = time.perf_counter()
+        estimate_illum(["--load-data", load_data, "--data-path", binned, "--channels", *CHANNELS,
+                        "--output", illum_dir, "--device", str(dev)])
+        secs["estimate_illum"] = (time.perf_counter() - t0) / n_img
+        for ch in CHANNELS:
+            fn = np.load(os.path.join(illum_dir, f"{ch}_illum.npy"))
+            if fn.shape != (res, res) or not np.isfinite(fn).all() or abs(float(fn.mean()) - 1) > 1e-3:
+                raise AssertionError(f"illumination function {ch}: {fn.shape}, mean {fn.mean()}")
+
+        t0 = time.perf_counter()
+        qc = run_illumination_qc(load_data, binned, list(CHANNELS), os.path.join(root, "qc.csv"),
+                                 illum_path=illum_dir, device=dev)
+        secs["illumination_qc"] = (time.perf_counter() - t0) / n_img
+    cols = [f"ImageQuality_{m}_{ch}" for ch in CHANNELS for m in ("PowerLogLogSlope", "PercentMaximal")]
+    if len(qc) != n_fields or any(c not in qc.columns for c in cols) \
+            or any("QC_Error" in c for c in qc.columns):
+        raise AssertionError(f"QC table {qc.shape}: {list(qc.columns)}")
+    if not np.isfinite(qc[cols].to_numpy(np.float64)).all():
+        raise AssertionError("non-finite QC values")
+    log(f"pixel path: {n_img} images of {size}^2 -> {res}^2; slopes "
+        f"{qc[cols[0]].round(4).tolist()} ({cols[0]})")
+    return secs
+
+
+def check_pixel_small_against_cpu(dev):
+    """``run_rebin`` and ``run_illumination_qc`` on the card agree with the
+    same calls on the CPU on a small plate: re-binned images within 1 unit,
+    slopes to 1e-4 relative, PercentMaximal exactly."""
+    import pandas as pd
+
+    from saguaro_tpu_torch.io import tiff
+    from saguaro_tpu_torch.pipeline.pixel_stages import run_illumination_qc, run_rebin
+
+    images, _ = synthetic_sites(3, 300, seed=12)
+    chans = CHANNELS[:2]
+    with tempfile.TemporaryDirectory() as root:
+        dirs = {}
+        for tag, device in (("card", dev), ("cpu", "cpu")):
+            base = os.path.join(root, tag)
+            os.makedirs(os.path.join(base, "Images"))
+            for s in range(3):
+                for c, ch in enumerate(chans):
+                    tiff.imwrite(os.path.join(base, "Images", f"S{s}_{ch}.tiff"), images[s, ..., c])
+            run_rebin(base, "Images/", resolution=128, device=device)
+            dirs[tag] = os.path.join(base, "Image_binneds")
+        names = sorted(os.listdir(dirs["card"]))
+        if len(names) != 6 or names != sorted(os.listdir(dirs["cpu"])):
+            raise AssertionError(f"card and CPU re-binned different files: {names}")
+        worst = max(int(np.abs(tiff.imread(os.path.join(dirs["card"], n)).astype(np.int64)
+                               - tiff.imread(os.path.join(dirs["cpu"], n)).astype(np.int64)).max())
+                    for n in names)
+        if worst > 1:
+            raise AssertionError(f"card and CPU re-binned images differ by {worst} units")
+        load_data = os.path.join(root, "load_data.csv")
+        pd.DataFrame([{f"FileName_{ch}": f"S{s}_{ch}.tiff" for ch in chans}
+                      for s in range(3)]).to_csv(load_data, index=False)
+        qc = {tag: run_illumination_qc(load_data, dirs["card"], list(chans),
+                                       os.path.join(root, f"qc_{tag}.csv"), device=device)
+              for tag, device in (("card", dev), ("cpu", "cpu"))}
+    slope_err = 0.0
+    for ch in chans:
+        a = qc["card"][f"ImageQuality_PowerLogLogSlope_{ch}"].to_numpy(np.float64)
+        b = qc["cpu"][f"ImageQuality_PowerLogLogSlope_{ch}"].to_numpy(np.float64)
+        slope_err = max(slope_err, float((np.abs(a - b) / (np.abs(b) + 1e-12)).max()))
+        pct = f"ImageQuality_PercentMaximal_{ch}"
+        if not np.array_equal(qc["card"][pct].to_numpy(), qc["cpu"][pct].to_numpy()):
+            raise AssertionError(f"card and CPU {pct} differ")
+    if slope_err > 1e-4:
+        raise AssertionError(f"card and CPU slopes differ by {slope_err:.3g} relative")
+    log(f"small pixel plate: card vs CPU re-binned within {worst} unit(s), slopes within "
+        f"{slope_err:.3g} relative, PercentMaximal equal")
 
 
 def feature_config(**kw):
@@ -651,6 +871,26 @@ def profile_stages(images, gt_labels, dev, top: int = 20) -> None:
                 f"{launched.get(e.key, 0):7d} launches")
 
 
+def profile_pixel_path(dev, top: int = 8) -> None:
+    """``--profile``: the pixel path once more under torch.profiler; logs
+    the device-busy seconds (the sum of kernel times) against the stages'
+    wall seconds, host I/O included, and the kernels with the most device
+    time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        secs = run_pixel_path(dev)
+    wall = sum(secs.values()) * PIX_FIELDS * len(CHANNELS)
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e6
+    log(f"profile pixel path: stages {wall:.4f} s wall (traced), device busy {busy:.4f} s "
+        f"({100 * busy / wall:.2f} %), {sum(e.count for e in kernels)} kernel launches; "
+        "s/image " + json.dumps(secs))
+    for e in sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:top]:
+        log(f"  {e.self_device_time_total / 1e3:10.3f} ms dev  {e.count:6d} launches  {e.key[:80]}")
+
+
 def main() -> int:
     try:
         import torch
@@ -686,6 +926,8 @@ def main() -> int:
     n_cells = int(gt[0].max())
     log(f"{N_SITES} sites {SIZE}x{SIZE}x{len(CHANNELS)}, {n_cells} cells/site")
     kernels, counters = check_kernels(images, gt, dev)
+    # K1-K6 run on the feature-extraction path, K7 on the pixel path
+    measure_kernels = sorted(set(counters.values()) - {"lanczos_resize"})
 
     check_small_against_cpu(dev)
 
@@ -696,7 +938,7 @@ def main() -> int:
     log(f"main path launches {launches}; s/site " + ", ".join(f"{k} {v:.4f}" for k, v in secs.items()))
     check_recovery(rec, gt)
     check_tables(tables, n_cells)
-    missing = [k for k, v in launches.items() if v < 1]
+    missing = [k for k in measure_kernels if launches[k] < 1]
     if missing:
         raise AssertionError(f"the main path did not launch {missing}")
     for name, entry in kernels.items():
@@ -704,12 +946,23 @@ def main() -> int:
 
     sc.reset_launch_counts()
     run_job(images, gt, dev)
-    if min(sc.LAUNCHES.values()) < 1:
+    if min(sc.LAUNCHES[k] for k in measure_kernels) < 1:
         raise AssertionError(f"the job did not launch every kernel: {sc.LAUNCHES}")
-
     log("stage seconds per site " + json.dumps(secs))
+
+    check_pixel_small_against_cpu(dev)
+    sc.reset_launch_counts()
+    pix_secs = run_pixel_path(dev)
+    torch.cuda.synchronize()
+    pix_launches = dict(sc.LAUNCHES)
+    log(f"pixel path launches {pix_launches}; s/image " + json.dumps(pix_secs))
+    if pix_launches["lanczos_resize"] < 1:
+        raise AssertionError("the pixel path did not launch K7 (lanczos_resize)")
+    kernels["lanczos_resize"]["launches"] = pix_launches["lanczos_resize"]
+
     if "--profile" in sys.argv[1:]:
         profile_stages(images, gt, dev)
+        profile_pixel_path(dev)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": list(kernels.values())}))
     print(smi)

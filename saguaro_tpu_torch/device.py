@@ -2,9 +2,11 @@
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
-__all__ = ["resolve_device"]
+__all__ = ["resolve_device", "full_f32"]
 
 
 def resolve_device(device: str | torch.device | None = None) -> torch.device:
@@ -21,3 +23,19 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
             )
         return torch.device("cuda")
     return torch.device(device)
+
+
+@contextlib.contextmanager
+def full_f32():
+    """Float32 matmuls and cuDNN convolutions in full f32 (no TF32) inside
+    the block, as the reference computes them (``Precision.HIGHEST``); the
+    caller's settings are restored after it."""
+    matmul = torch.get_float32_matmul_precision()
+    conv = torch.backends.cudnn.allow_tf32
+    torch.set_float32_matmul_precision("highest")
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.set_float32_matmul_precision(matmul)
+        torch.backends.cudnn.allow_tf32 = conv

@@ -1,1 +1,1 @@
-"""Segment reductions, measurement kernels and their CUDA forms."""
+"""Segment reductions, measurement kernels, the pixel-stage kernels and their CUDA forms."""

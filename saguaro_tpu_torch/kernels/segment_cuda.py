@@ -1,4 +1,5 @@
-"""Hopper kernels K1-K6 of the measurement stage, their bindings and plain twins.
+"""Hopper kernels K1-K6 of the measurement stage, their bindings and plain twins,
+and the build and launch helpers that K7 (``kernels/resample_cuda``) shares.
 
 Each CUDA kernel under ``saguaro_tpu_torch/csrc/`` replaces one Pallas
 kernel of ``saguaro_tpu/kernels/segment_pallas.py``:
@@ -14,6 +15,9 @@ kernel of ``saguaro_tpu/kernels/segment_pallas.py``:
                          counts and channel sums
 * K5 ``seg_edt_sweep``   bounded horizontal EDT sweep    (``edt_sweep_pallas``)
 * K6 ``seg_pick2``       per-pixel two-level table pick  (``pick2_pallas``)
+
+K7, the Lanczos re-binner of the pixel stages (``csrc/lanczos.cu``), is
+built into the same library and counted here as ``lanczos_resize``.
 
 Every kernel takes a leading site-batch dimension, so one launch covers a
 batch. The sources are compiled at first use by one ``nvcc`` call into a
@@ -73,7 +77,7 @@ _CSRC = _PKG / "csrc"
 _BUILD = _PKG / "_build"
 _SOURCES = (
     "common.cuh", "counts.cu", "take.cu", "sums.cu", "lane_sums.cu", "radial_sums.cu",
-    "edt_sweep.cu", "pick2.cu", "errors.cu",
+    "edt_sweep.cu", "pick2.cu", "lanczos.cu", "errors.cu",
 )
 _NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -92,6 +96,7 @@ LAUNCHES: dict[str, int] = {
     "seg_radial_sums": 0,
     "seg_edt_sweep": 0,
     "seg_pick2": 0,
+    "lanczos_resize": 0,
 }
 
 _LIB: ctypes.CDLL | None = None
@@ -156,6 +161,7 @@ def _lib() -> ctypes.CDLL:
             "sag_radial_sums": (p, p, p, p, i, ll, i, i, i, p),
             "sag_edt_sweep": (p, p, p, i, i, i, i, p),
             "sag_pick2": (p, p, p, p, i, ll, i, i, p),
+            "sag_lanczos": (p, i, p, p, p, p, i, p, p, p, i, i, i, i, i, p),
         }
         for name, args in sigs.items():
             fn = getattr(lib, name)

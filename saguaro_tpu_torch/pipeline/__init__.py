@@ -1,1 +1,1 @@
-"""Segmentation, measurement and the feature-extraction job."""
+"""Segmentation, measurement, the feature-extraction job and the pixel stages."""

@@ -1,7 +1,8 @@
 """chip_smoke.py without a card: it exits non-zero and prints no result,
 in the repository and in a directory holding nothing else; its main path
-(engine -> mask recovery -> measurement -> job) rehearses on the CPU at a
-small size through the plain forms."""
+(engine -> mask recovery -> measurement -> job) and its pixel path
+(max projection -> re-binning -> illumination estimate -> QC) rehearse on
+the CPU at a small size through the plain forms."""
 
 import importlib.util
 import json
@@ -66,3 +67,23 @@ def test_bound_picks_the_larger_time(smoke):
     assert by == "bytes" and abs(t - 1.0) < 1e-9
     t, by = smoke.bound(0.0, 67e9)
     assert by == "operations" and abs(t - 1.0) < 1e-9
+
+
+def test_pixel_path_rehearsal_on_cpu(smoke):
+    secs = smoke.run_pixel_path("cpu", size=96, n_fields=2, n_planes=3)
+    assert set(secs) == {"max_projection", "rebin", "estimate_illum", "illumination_qc"}
+    assert all(v > 0 for v in secs.values())
+
+
+def test_pixel_small_check_rehearsal_on_cpu(smoke):
+    smoke.check_pixel_small_against_cpu("cpu")
+
+
+def test_resample_hold_rehearsal_on_cpu(smoke):
+    import torch
+
+    imgs = np.random.default_rng(0).integers(0, 65535, (2, 60, 80)).astype(np.uint16)
+    assert smoke.hold_resample("rehearsal", torch.from_numpy(imgs), (30, 40)) == 0.0
+    up = torch.from_numpy(imgs[:1].astype(np.float32))
+    # f32 sums against the f64 plain form: rounding only
+    assert 0.0 < smoke.hold_resample("rehearsal f32", up, (97, 131)) < 0.1

@@ -1,9 +1,11 @@
-"""The CUDA kernels K1-K6 against their plain twins on the same CUDA
+"""The CUDA kernels K1-K7 against their plain twins on the same CUDA
 tensors: K1 and K2 exactly; K3 to 1e-5 of the per-label sum of |value|
 (f32 atomics sum in a run-dependent order); K4 against its plain form in
 f64, to 1e-5 of each lane's rounding scale (``magnitude=True``: the sum of
 |lane|, and for Zernike lanes of the radial terms' magnitudes); counted
-lanes (areas, small-integer sums) exactly. Marker ``cuda``: skipped without a card. The
+lanes (areas, small-integer sums) exactly; K7's sums to 1e-5 of each
+output's sum of |w * x|, its rounded integers within 1 unit. Marker
+``cuda``: skipped without a card. The
 file imports neither JAX nor the reference, so it runs on the card:
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py
@@ -166,3 +168,41 @@ def test_lane_sums_e_kernel(cuda):
     scale = sc.lane_sums_e_plain(*args, 512, magnitude=True, dtype=torch.float64)
     assert got.shape == (2, 512, n_ch + 8 * n_pairs)
     assert torch.all((got.double() - want).abs() <= 1e-5 * scale + 1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "dtype,batch,in_shape,out_shape",
+    [
+        (np.uint16, 3, (540, 600), (270, 300)),    # down by 2, the run point's ratio
+        (np.uint16, 1, (1001, 1537), (433, 761)),  # odd, non-square, batch 1
+        (np.uint8, 2, (40, 56), (97, 71)),         # upsampling
+        (np.uint16, 1, (1000, 900), (30, 25)),     # windows wider than one staged chunk
+        (np.float32, 2, (333, 250), (160, 121)),
+    ],
+    ids=["down2", "odd", "up-u8", "down33", "f32"],
+)
+def test_lanczos_kernel(cuda, dtype, batch, in_shape, out_shape):
+    """K7: the f32 sums to 1e-5 of each output's sum of |w * x|; integer
+    results after PIL's rounding within 1 unit."""
+    from saguaro_tpu_torch.kernels import resample as rs
+
+    rng = np.random.default_rng(11)
+    if dtype == np.float32:
+        host = rng.normal(0.0, 500.0, (batch,) + in_shape).astype(dtype)
+    else:
+        host = rng.integers(0, np.iinfo(dtype).max, (batch,) + in_shape).astype(dtype)
+    imgs = torch.from_numpy(host).to(cuda)
+    before = sc.LAUNCHES["lanczos_resize"]
+    got = rs.lanczos_resample(imgs, out_shape)
+    torch.cuda.synchronize()
+    assert sc.LAUNCHES["lanczos_resize"] == before + 1
+    want = rs.resize_plain(imgs, out_shape, dtype=torch.float64)
+    scale = rs.resize_plain(imgs, out_shape, magnitude=True, dtype=torch.float64)
+    assert got.shape == (batch,) + out_shape and got.dtype == torch.float32
+    assert torch.all((got.double() - want).abs() <= 1e-5 * scale + 1e-6)
+    if dtype != np.float32:
+        cast = rs.lanczos_resize_batch(imgs, out_shape)
+        plain = rs._cast(rs.resize_plain(imgs, out_shape), imgs.dtype)
+        assert cast.dtype == imgs.dtype
+        assert int((cast.to(torch.int32) - plain.to(torch.int32)).abs().max()) <= 1

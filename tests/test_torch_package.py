@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from saguaro_tpu_torch import resolve_device
+from saguaro_tpu_torch.kernels import resample
 from saguaro_tpu_torch.kernels import segment_cuda as sc
 from saguaro_tpu_torch.pipeline.features import FeatureConfig, measure_site_batch
 
@@ -32,6 +33,8 @@ def test_import_leaves_out_jax_and_reference():
         "import sys, saguaro_tpu_torch\n"
         "import saguaro_tpu_torch.pipeline.feature_extraction\n"
         "import saguaro_tpu_torch.pipeline.segment_embed\n"
+        "import saguaro_tpu_torch.pipeline.pixel_stages\n"
+        "import saguaro_tpu_torch.cli.estimate_illum\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'saguaro_tpu')]\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
@@ -106,8 +109,34 @@ def _entry_cellpose():
     init_cellpose()
 
 
+def _entry_max_projection():
+    from saguaro_tpu_torch.pipeline.pixel_stages import run_max_projection
+
+    run_max_projection("x", "index.csv", 1, 1, "y")
+
+
+def _entry_rebin():
+    from saguaro_tpu_torch.pipeline.pixel_stages import run_rebin
+
+    run_rebin("x", "Images/")
+
+
+def _entry_illumination_qc():
+    from saguaro_tpu_torch.pipeline.pixel_stages import run_illumination_qc
+
+    run_illumination_qc("x.csv", "y", ["DNA"], "out.csv")
+
+
+def _entry_estimate_illumination():
+    from saguaro_tpu_torch.kernels.illum import estimate_illumination
+
+    estimate_illumination(np.zeros((1, 8, 8), np.float32), sigma=1)
+
+
 @pytest.mark.parametrize(
-    "entry", [_entry_measure, _entry_engine, _entry_masks, _entry_job, _entry_cellpose]
+    "entry", [_entry_measure, _entry_engine, _entry_masks, _entry_job, _entry_cellpose,
+              _entry_max_projection, _entry_rebin, _entry_illumination_qc,
+              _entry_estimate_illumination]
 )
 def test_entry_point_without_device_raises_when_cuda_absent(monkeypatch, entry):
     _no_cuda(monkeypatch)
@@ -116,6 +145,10 @@ def test_entry_point_without_device_raises_when_cuda_absent(monkeypatch, entry):
 
 
 def _cpu_wrapper_calls():
+    from saguaro_tpu_torch.kernels.resample_cuda import lanczos_resize_cuda
+
+    start, n, w = (torch.as_tensor(a) for a in resample.axis_windows(8, 4))
+    axis = (start, n, w)
     lab = torch.zeros((1, 8), dtype=torch.int32)
     img = torch.zeros((1, 4, 2, 1))
     lab3 = torch.zeros((1, 4, 2), dtype=torch.int32)
@@ -137,6 +170,9 @@ def _cpu_wrapper_calls():
         "seg_pick2": lambda: sc.seg_pick2(
             torch.zeros((1, 8, 1), dtype=torch.int32), torch.zeros((1, 8, 1), dtype=torch.int32),
             torch.zeros((1, 1, 256, 256, 1)),
+        ),
+        "lanczos_resize": lambda: lanczos_resize_cuda(
+            torch.zeros((1, 8, 6), dtype=torch.uint16), axis, axis
         ),
     }
 
