@@ -18,8 +18,14 @@ and ``run_illumination_qc`` on a temporary plate of raw 2160 x 2160 uint16
 z-stacks (4 fields x 5 channels x 3 planes). It fails unless each path
 launched every kernel it runs, and prints one JSON line of per-kernel
 numbers, the card's name and power limit, and last ``{"ok": true,
-"device": {...}}``. Without a CUDA device, or without the package beside
-it, it exits non-zero and prints no result.
+"device": {...}}``. Before that it logs the build's seconds, the
+compiler's registers, spills and shared memory of every K4 instantiation
+(it fails if a pass C or E kernel spills) and their resident blocks a SM,
+and it holds K4 passes C and E against their plain forms on small
+adversarial sites (``tests/torch_data.adversarial_lane_sites``): every lane
+group, 1, 5 and 8 channels (E: 2, 5 and 8), max_cells 16 and 1024. Without
+a CUDA device, or without the package beside it, it exits non-zero and
+prints no result.
 
     python3 chip_smoke.py --profile
 
@@ -32,10 +38,12 @@ time.
 
 from __future__ import annotations
 
+import itertools
 import json
 import logging
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -136,6 +144,101 @@ def hold_sums(name, got, want, scale):
             f"worst site {s} label {lab} lane {lane}: kernel {got[s, lab, lane].item()!r} "
             f"plain {want[s, lab, lane].item()!r} scale {scale[s, lab, lane].item()!r}")
     return float(err.max())
+
+
+def ptxas_report(log_text: str) -> list[dict]:
+    """Per kernel of an ``nvcc -Xptxas -v`` log: its (mangled) name,
+    registers, stack frame, spill stores and loads, and static shared
+    memory in bytes."""
+    out, cur = [], None
+    for line in log_text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            cur = {"name": m.group(1), "registers": 0, "stack": 0, "spill_stores": 0,
+                   "spill_loads": 0, "smem": 0}
+            out.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            cur["stack"], cur["spill_stores"], cur["spill_loads"] = (int(v) for v in m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+            smem = re.search(r"(\d+) bytes smem", line)
+            cur["smem"] = int(smem.group(1)) if smem else 0
+    return out
+
+
+def demangle(names: list[str]) -> list[str]:
+    """C++ names through ``c++filt`` where the toolkit's host has it."""
+    try:
+        res = subprocess.run(["c++filt"], input="\n".join(names), capture_output=True, text=True,
+                             check=True)
+        return res.stdout.splitlines()
+    except (OSError, subprocess.CalledProcessError):
+        return names
+
+
+def log_k4_resources(build_log: str) -> None:
+    """Logs the compiler's report of every K4 instantiation (pass A, the
+    pass C and E run kernels) and the run kernels' resident blocks a SM at
+    5 and 8 channels; fails if a pass C or E kernel spills."""
+    from saguaro_tpu_torch.kernels import segment_cuda as sc
+
+    k4 = [k for k in ptxas_report(build_log) if "sag_lanes" in k["name"]]
+    if not any("sag_lanes_c_kernel" in k["name"] for k in k4):
+        raise AssertionError("the build log has no ptxas report of the pass C kernels")
+    spilled = []
+    for k, name in zip(k4, demangle([k["name"] for k in k4])):
+        log(f"ptxas K4 {name}: {k['registers']} registers, {k['spill_stores']} B spill stores, "
+            f"{k['spill_loads']} B spill loads, {k['stack']} B stack, {k['smem']} B static smem")
+        if ("lanes_c_kernel" in k["name"] or "lanes_e_kernel" in k["name"]) \
+                and k["spill_stores"] + k["spill_loads"] > 0:
+            spilled.append(name)
+    if spilled:
+        raise AssertionError(f"K4 pass C/E kernels spill registers: {spilled}")
+    for n_ch in (5, 8):
+        for flags in itertools.product([False, True], repeat=3):
+            log(f"K4 C flags (moments, zernike, edge)={flags} n_ch={n_ch}: "
+                + json.dumps(sc.lanes_kernel_info("C", n_ch, flags)))
+        log(f"K4 E n_ch={n_ch}: " + json.dumps(sc.lanes_kernel_info("E", n_ch)))
+
+
+def check_lane_adversarial(dev) -> float:
+    """K4 passes C and E on small adversarial sites against their f64 plain
+    forms (SUM_RTOL of each sum's rounding scale): every (moments, zernike,
+    edge) combination at 1, 5 and 8 channels, pass E at 2, 5 and 8, each at
+    max_cells 16 and 1024. Returns the largest difference."""
+    import torch
+
+    from saguaro_tpu_torch.kernels import segment_cuda as sc
+    from saguaro_tpu_torch.kernels.zernike import _radial_coeffs
+    from tests.torch_data import adversarial_lane_args_c, adversarial_lane_args_e
+
+    worst, n = 0.0, 0
+    for n_ch, mc in itertools.product((1, 5, 8), (16, 1024)):
+        for flags in itertools.product([False, True], repeat=3):
+            host = adversarial_lane_args_c(n_ch, mc, *flags, _radial_coeffs(), seed=n_ch + mc)
+            args = [torch.as_tensor(a, device=dev) for a in host[:5]] + list(host[5:])
+            got = sc.seg_lane_sums_c(*args)
+            worst = max(worst, hold_sums(f"K4 pass C adversarial n_ch={n_ch} mc={mc} {flags}", got,
+                                         sc.lane_sums_c_plain(*args, dtype=torch.float64),
+                                         sc.lane_sums_c_plain(*args, magnitude=True,
+                                                              dtype=torch.float64)))
+            n += 1
+    for n_ch, mc in itertools.product((2, 5, 8), (16, 1024)):
+        host = adversarial_lane_args_e(n_ch, mc, seed=7 * n_ch + mc)
+        args = [torch.as_tensor(a, device=dev) for a in host[:5]] + [mc]
+        got = sc.seg_lane_sums_e(*args)
+        worst = max(worst, hold_sums(f"K4 pass E adversarial n_ch={n_ch} mc={mc}", got,
+                                     sc.lane_sums_e_plain(*args, dtype=torch.float64),
+                                     sc.lane_sums_e_plain(*args, magnitude=True,
+                                                          dtype=torch.float64)))
+        n += 1
+    log(f"K4 C/E adversarial: {n} cases within tolerance, largest difference {worst:.3g}")
+    return worst
 
 
 def check_kernels(images, labels, dev):
@@ -918,13 +1021,12 @@ def main() -> int:
     lib = sc.build_kernels()
     sc._lib()
     log(f"built {lib.name} in {time.perf_counter() - t0:.1f} s")
-    for line in (lib.parent / "build.log").read_text().splitlines():
-        if "Used" in line or "spill" in line:
-            log("ptxas: " + line.strip())
+    log_k4_resources((lib.parent / "build.log").read_text())
 
     images, gt = synthetic_sites(N_SITES, SIZE, seed=0)
     n_cells = int(gt[0].max())
     log(f"{N_SITES} sites {SIZE}x{SIZE}x{len(CHANNELS)}, {n_cells} cells/site")
+    check_lane_adversarial(dev)
     kernels, counters = check_kernels(images, gt, dev)
     # K1-K6 run on the feature-extraction path, K7 on the pixel path
     measure_kernels = sorted(set(counters.values()) - {"lanczos_resize"})

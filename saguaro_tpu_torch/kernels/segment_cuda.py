@@ -70,6 +70,7 @@ __all__ = [
     "n_lanes_a",
     "n_lanes_c",
     "table_cols_c",
+    "lanes_kernel_info",
 ]
 
 _PKG = Path(__file__).resolve().parents[1]
@@ -84,6 +85,7 @@ _NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 _MAX_CH = 8  # SAG_MAX_CH in lane_sums.cu
+_A_SMEM = 96 * 1024  # SAG_LANES_SMEM in lane_sums.cu: pass A's shared accumulator
 
 # launches of each kernel since the last reset (one per wrapper launch)
 LAUNCHES: dict[str, int] = {
@@ -167,6 +169,8 @@ def _lib() -> ctypes.CDLL:
             fn = getattr(lib, name)
             fn.argtypes = list(args)
             fn.restype = ctypes.c_int
+        lib.sag_lanes_info.argtypes = [i, i, i, p]
+        lib.sag_lanes_info.restype = ctypes.c_int
         lib.sag_error_string.argtypes = [ctypes.c_int]
         lib.sag_error_string.restype = ctypes.c_char_p
         _LIB = lib
@@ -350,6 +354,19 @@ def table_cols_c(n_ch: int, with_moments: bool, with_zernike: bool, with_edge: b
     )
 
 
+def lanes_kernel_info(pass_name: str, n_ch: int, flags: tuple[bool, bool, bool] = (False,) * 3):
+    """Resources of the pass C (flags = moments, zernike, edge) or pass E
+    kernel at ``n_ch`` channels on the current card: registers and local
+    (spilled) bytes a thread, dynamic shared bytes a block, and resident
+    blocks a SM."""
+    info = (ctypes.c_int * 4)()
+    code = 4 * flags[0] + 2 * flags[1] + flags[2]
+    rc = _lib().sag_lanes_info({"C": 1, "E": 2}[pass_name], code, n_ch, info)
+    if rc != 0:
+        raise RuntimeError(f"sag_lanes_info failed: CUDA error {rc}")
+    return dict(zip(("registers", "local_bytes", "smem_bytes", "blocks_per_sm"), info))
+
+
 def _check_lane_inputs(labels, image, border, max_cells):
     _check(labels, "labels", torch.int32, 3)
     _check(image, "image", torch.float32, 4)
@@ -360,8 +377,8 @@ def _check_lane_inputs(labels, image, border, max_cells):
         raise ValueError("labels, image and border must share (B, H, W)")
     if not 1 <= n_ch <= _MAX_CH:
         raise ValueError(f"the lane kernels take 1..{_MAX_CH} channels, got {n_ch}")
-    if max_cells * 4 > 96 * 1024:
-        raise ValueError(f"max_cells={max_cells} exceeds the lane kernels' shared accumulator")
+    if max_cells < 1:
+        raise ValueError(f"max_cells must be at least 1, got {max_cells}")
     return b, h, w, n_ch
 
 
@@ -378,6 +395,9 @@ def seg_lane_sums_a(
     weights, border (B, H, W) uint8 -> (B, max_cells, n_lanes_a) f32."""
     b, h, w, n_ch = _check_lane_inputs(labels, image, border, max_cells)
     _check(pweight, "pweight", torch.float32, 3)
+    if max_cells * 4 > _A_SMEM:
+        raise ValueError(f"max_cells={max_cells} exceeds pass A's shared accumulator: one lane "
+                         f"of max_cells f32 sums must fit {_A_SMEM} B (max_cells <= {_A_SMEM // 4})")
     nl = n_lanes_a(n_ch, with_edge)
     out = torch.zeros((b, max_cells, nl), dtype=torch.float32, device=labels.device)
     _launch(
@@ -401,7 +421,9 @@ def seg_lane_sums_c(
 ) -> torch.Tensor:
     """Pass C sums. table (B, max_cells, table_cols_c) f32 per-label values
     gathered per pixel (sentinel entries read as 0); zcoef (30, 10) f32
-    Zernike radial coefficients -> (B, max_cells, n_lanes_c) f32."""
+    Zernike radial coefficients, of which the kernel reads the 70 that are
+    non-zero for R_n^m (powers m, m+2, ..., n) -> (B, max_cells,
+    n_lanes_c) f32."""
     b, h, w, n_ch = _check_lane_inputs(labels, image, border, max_cells)
     _check(table, "table", torch.float32, 3)
     _check(zcoef, "zcoef", torch.float32, 2)
@@ -593,9 +615,9 @@ def seg_lane_sums_e(
         raise ValueError(f"tff {tuple(tff.shape)} or consts {tuple(consts.shape)} do not match")
     if not 2 <= n_ch <= _MAX_CH:
         raise ValueError(f"pass E takes 2..{_MAX_CH} channels, got {n_ch}")
+    if max_cells < 1:
+        raise ValueError(f"max_cells must be at least 1, got {max_cells}")
     nl = n_lanes_e(n_ch)
-    if max_cells * 4 > 200 * 1024:
-        raise ValueError(f"max_cells={max_cells} exceeds pass E's shared accumulator")
     out = torch.zeros((b, max_cells, nl), dtype=torch.float32, device=labels.device)
     _launch(
         "sag_lanes_e", "seg_lane_sums_e", labels.device,

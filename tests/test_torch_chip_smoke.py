@@ -87,3 +87,22 @@ def test_resample_hold_rehearsal_on_cpu(smoke):
     up = torch.from_numpy(imgs[:1].astype(np.float32))
     # f32 sums against the f64 plain form: rounding only
     assert 0.0 < smoke.hold_resample("rehearsal f32", up, (97, 131)) < 0.1
+
+
+def test_ptxas_report_reads_each_kernel(smoke):
+    text = """ptxas info    : Compiling entry function '_Z18sag_lanes_e_kernelPKi' for 'sm_90a'
+ptxas info    : Function properties for _Z18sag_lanes_e_kernelPKi
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 96 registers, used 1 barriers, 192 bytes smem, 440 bytes cmem[0]
+ptxas info    : Compiling entry function '_Z9sag_countsPKi' for 'sm_90a'
+ptxas info    : Function properties for _Z9sag_countsPKi
+    16 bytes stack frame, 8 bytes spill stores, 4 bytes spill loads
+ptxas info    : Used 255 registers, 384 bytes cmem[0]
+"""
+    got = smoke.ptxas_report(text)
+    assert got == [
+        {"name": "_Z18sag_lanes_e_kernelPKi", "registers": 96, "stack": 0, "spill_stores": 0,
+         "spill_loads": 0, "smem": 192},
+        {"name": "_Z9sag_countsPKi", "registers": 255, "stack": 16, "spill_stores": 8,
+         "spill_loads": 4, "smem": 0},
+    ]

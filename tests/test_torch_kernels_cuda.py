@@ -11,6 +11,8 @@ file imports neither JAX nor the reference, so it runs on the card:
     python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py
 """
 
+import itertools
+
 import numpy as np
 import pytest
 import torch
@@ -18,7 +20,7 @@ import torch
 from saguaro_tpu_torch.kernels import segment_cuda as sc
 from saguaro_tpu_torch.kernels.segment_reduce import perimeter_weight_image
 
-from .torch_data import blob_sites
+from .torch_data import adversarial_lane_args_c, adversarial_lane_args_e, blob_sites
 
 
 @pytest.fixture
@@ -168,6 +170,47 @@ def test_lane_sums_e_kernel(cuda):
     scale = sc.lane_sums_e_plain(*args, 512, magnitude=True, dtype=torch.float64)
     assert got.shape == (2, 512, n_ch + 8 * n_pairs)
     assert torch.all((got.double() - want).abs() <= 1e-5 * scale + 1e-6)
+
+
+def _hold_lane_sums(got, want, scale):
+    """K4's hold: f32 sums against the f64 plain form to 1e-5 of each sum's
+    rounding scale (passes C and E carry no count lane to hold exactly)."""
+    err = (got.double() - want).abs()
+    assert torch.all(err <= 1e-5 * scale + 1e-6), float((err / (1e-5 * scale + 1e-6)).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("max_cells", [16, 512, 1024])
+@pytest.mark.parametrize("n_ch", [1, 2, 5, 8])
+@pytest.mark.parametrize("moments,zernike,edge", list(itertools.product([False, True], repeat=3)))
+def test_lane_sums_c_kernel_adversarial(cuda, n_ch, max_cells, moments, zernike, edge):
+    """Pass C's register runs on objects wider than a strip and a block's
+    span, runs across strip, step and row ends, single pixels, overflow ids,
+    an all-background site and a ragged last span, at every lane group."""
+    from saguaro_tpu_torch.kernels.zernike import _radial_coeffs
+
+    host = adversarial_lane_args_c(n_ch, max_cells, moments, zernike, edge, _radial_coeffs(),
+                                   seed=n_ch + max_cells)
+    args = [torch.from_numpy(a).to(cuda) for a in host[:5]] + list(host[5:])
+    got = sc.seg_lane_sums_c(*args)
+    torch.cuda.synchronize()
+    assert got.shape == (3, max_cells, sc.n_lanes_c(n_ch, moments, zernike, edge))
+    _hold_lane_sums(got, sc.lane_sums_c_plain(*args, dtype=torch.float64),
+                    sc.lane_sums_c_plain(*args, magnitude=True, dtype=torch.float64))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("max_cells", [16, 512, 1024])
+@pytest.mark.parametrize("n_ch", [2, 5, 8])
+def test_lane_sums_e_kernel_adversarial(cuda, n_ch, max_cells):
+    """Pass E's register runs on the same fixtures, every pair group."""
+    host = adversarial_lane_args_e(n_ch, max_cells, seed=7 * n_ch + max_cells)
+    args = [torch.from_numpy(a).to(cuda) for a in host[:5]] + [max_cells]
+    got = sc.seg_lane_sums_e(*args)
+    torch.cuda.synchronize()
+    assert got.shape == (3, max_cells, sc.n_lanes_e(n_ch))
+    _hold_lane_sums(got, sc.lane_sums_e_plain(*args, dtype=torch.float64),
+                    sc.lane_sums_e_plain(*args, magnitude=True, dtype=torch.float64))
 
 
 @pytest.mark.cuda

@@ -54,6 +54,100 @@ def blob_sites(
     return images, labels
 
 
+def _label_runs(rng, n: int, max_cells: int) -> np.ndarray:
+    """n raster labels in runs of 1-90 pixels (a third of them single
+    pixels): ids in [1, max_cells) mostly, background 0 and -1, and
+    overflow ids >= max_cells."""
+    out = np.empty(n, np.int32)
+    i = 0
+    while i < n:
+        length = 1 if rng.random() < 0.33 else int(rng.integers(2, 91))
+        u = rng.random()
+        if u < 0.2:
+            lab = int(rng.choice([0, -1]))
+        elif u < 0.27:
+            lab = int(rng.choice([max_cells, max_cells + 7, 2**31 - 1]))
+        else:
+            lab = int(rng.integers(1, max_cells)) if max_cells > 1 else 0
+        out[i : i + length] = lab
+        i += length
+    return out
+
+
+def adversarial_lane_sites(n_ch: int, max_cells: int, seed: int = 0, h: int = 61, w: int = 211):
+    """(images (3, h, w, n_ch) f32 integer grey levels, labels (3, h, w)
+    int32) that stress the run-accumulating lane kernels (passes C and E).
+    Site 0: one object over 44 full rows, 9284 pixels in raster order, wider
+    than a strip (64 pixels) and than a block's span (8192), its runs
+    crossing row ends; its lower rows sprinkled with single pixels of other
+    ids, overflow ids (>= max_cells) and background; then random runs.
+    Site 1: all background (0 and -1). Site 2: random runs of 1-90 pixels
+    over every id kind. h * w is odd, so the last span is ragged."""
+    rng = np.random.default_rng(seed)
+    labels = np.zeros((3, h, w), np.int32)
+    big = int(rng.integers(1, max_cells)) if max_cells > 1 else max_cells
+    labels[0, 2:46] = big
+    ys, xs = rng.integers(30, 46, 40), rng.integers(0, w, 40)
+    ids = rng.integers(1, max_cells + 8, 40)
+    ids[:5] = [max_cells, max_cells + 3, 2**31 - 1, -1, 0]
+    labels[0, ys, xs] = ids
+    labels[0].reshape(-1)[46 * w :] = _label_runs(rng, (h - 46) * w, max_cells)
+    labels[1, h // 2 :] = -1
+    labels[2] = _label_runs(rng, h * w, max_cells).reshape(h, w)
+    images = rng.integers(0, 4000, (3, h, w, n_ch)).astype(np.float32)
+    return images, labels
+
+
+def _with_sentinels(rng, table: np.ndarray) -> np.ndarray:
+    """A few entries of a per-label table set to the values K2's sentinel
+    rule reads as 0 (non-finite, +-3.4e38)."""
+    flat = table.reshape(-1)
+    idx = rng.choice(flat.size, size=max(1, flat.size // 50), replace=False)
+    flat[idx] = rng.choice(np.array([np.inf, -np.inf, np.nan, 3.4e38, -3.4e38], np.float32), idx.size)
+    return table
+
+
+def adversarial_lane_args_c(n_ch, max_cells, moments, zernike, edge, zcoef, seed=0):
+    """Pass C's arguments (labels, image, border, table, zcoef, max_cells,
+    moments, zernike, edge) as numpy arrays on ``adversarial_lane_sites``:
+    border flags on a third of the labelled pixels, table rows of centroids
+    and bbox origins inside the site, rmax in [1, 80], channel and edge
+    means in the image's range, a few sentinel entries."""
+    from saguaro_tpu_torch.kernels.segment_cuda import table_cols_c
+
+    images, labels = adversarial_lane_sites(n_ch, max_cells, seed)
+    b, h, w = labels.shape
+    rng = np.random.default_rng(seed + 1)
+    border = ((rng.random(labels.shape) < 0.33) & (labels > 0)).astype(np.uint8)
+    cols = [rng.uniform(0, h, (b, max_cells, 1)), rng.uniform(0, w, (b, max_cells, 1))]
+    if moments:
+        cols += [rng.uniform(0, h, (b, max_cells, 1)), rng.uniform(0, w, (b, max_cells, 1))]
+    if zernike:
+        cols.append(rng.uniform(1, 80, (b, max_cells, 1)))
+    cols.append(rng.uniform(0, 4000, (b, max_cells, n_ch * (2 if edge else 1))))
+    table = _with_sentinels(rng, np.concatenate(cols, axis=-1).astype(np.float32))
+    assert table.shape[2] == table_cols_c(n_ch, moments, zernike, edge)
+    return (labels, images, border, table, np.asarray(zcoef, np.float32), max_cells,
+            moments, zernike, edge)
+
+
+def adversarial_lane_args_e(n_ch, max_cells, seed=0):
+    """Pass E's arguments (labels (B, N), image (B, N, C), ranks, tff,
+    consts, max_cells) as numpy arrays on ``adversarial_lane_sites``: ranks
+    in [0, 3000), Manders thresholds in the image's range with a few
+    sentinels, Costes thresholds in the image's range and 1/R = 1/3000."""
+    images, labels = adversarial_lane_sites(n_ch, max_cells, seed)
+    b = labels.shape[0]
+    n = labels[0].size
+    rng = np.random.default_rng(seed + 2)
+    n_pairs = n_ch * (n_ch - 1) // 2
+    ranks = rng.integers(0, 3000, (b, n, n_ch)).astype(np.float32)
+    tff = _with_sentinels(rng, rng.uniform(0, 4000, (b, max_cells, n_ch)).astype(np.float32))
+    consts = np.concatenate([rng.uniform(0, 4000, (b, 2, n_pairs)),
+                             np.full((b, 1, n_pairs), 1.0 / 3000.0)], axis=1).astype(np.float32)
+    return labels.reshape(b, n), images.reshape(b, n, n_ch), ranks, tff, consts, max_cells
+
+
 # Tolerances of the port's features against the reference's, per column.
 # The reference sums every payload through a bf16 hi/lo split (~16
 # significant bits per value, error <= 2**-16 |v|); the port sums f32.
