@@ -5,7 +5,8 @@
 Builds the port's CUDA kernels (K1-K7, ``saguaro_tpu_torch/csrc``) from the
 checkout, holds each one against its plain PyTorch twin at the shapes its
 path gives it and times both: K1-K6 at the feature-extraction path's (8
-sites of 1080 x 1080, 5 channels, max_cells=512), K7 at the pixel path's
+sites of 1080 x 1080, 5 channels, max_cells=512; K1 at each of its call
+sites there, with the inputs one measurement gives it), K7 at the pixel path's
 (16 raw 2160 x 2160 uint16 fields re-binned to 1080 x 1080, plus an
 upsampling and an odd non-square case). Then it drives both paths end to
 end through the user-facing entry points. Feature extraction: the
@@ -16,14 +17,15 @@ family on), and ``run_feature_extraction_job`` on a 2-site plate. Pixel
 stages: ``run_max_projection``, ``run_rebin``, the ``estimate_illum`` CLI
 and ``run_illumination_qc`` on a temporary plate of raw 2160 x 2160 uint16
 z-stacks (4 fields x 5 channels x 3 planes). It fails unless each path
-launched every kernel it runs, and prints one JSON line of per-kernel
-numbers, the card's name and power limit, and last ``{"ok": true,
-"device": {...}}``. Before that it logs the build's seconds, the
-compiler's registers, spills and shared memory of every K4 instantiation
-(it fails if a pass C or E kernel spills) and their resident blocks a SM,
-and it holds K4 passes C and E against their plain forms on small
-adversarial sites (``tests/torch_data.adversarial_lane_sites``): every lane
-group, 1, 5 and 8 channels (E: 2, 5 and 8), max_cells 16 and 1024. Without
+launched every kernel it runs (K1's launches are logged by call site,
+with each site's shape), and prints one JSON line of per-kernel numbers, the card's
+name and power limit, and last ``{"ok": true, "device": {...}}``. Before
+that it logs the build's seconds, the compiler's registers, spills and
+shared memory of K1 and of every K4 run kernel (it fails if one spills),
+their resident blocks a SM and K1's plan at each shape, and it holds K4
+passes A, C and E against their plain forms on small adversarial sites
+(``tests/torch_data.adversarial_lane_sites``): every lane group, 1, 5 and 8
+channels (E: 2, 5 and 8), max_cells 16 and 1024. Without
 a CUDA device, or without the package beside it, it exits non-zero and
 prints no result.
 
@@ -182,24 +184,26 @@ def demangle(names: list[str]) -> list[str]:
 
 
 def log_k4_resources(build_log: str) -> None:
-    """Logs the compiler's report of every K4 instantiation (pass A, the
-    pass C and E run kernels) and the run kernels' resident blocks a SM at
-    5 and 8 channels; fails if a pass C or E kernel spills."""
+    """Logs the compiler's report of K1's kernels and of every K4 run
+    kernel instantiation (passes A, C and E) and the run kernels' resident
+    blocks a SM at 5 and 8 channels; fails if any of them spills."""
     from saguaro_tpu_torch.kernels import segment_cuda as sc
 
-    k4 = [k for k in ptxas_report(build_log) if "sag_lanes" in k["name"]]
-    if not any("sag_lanes_c_kernel" in k["name"] for k in k4):
-        raise AssertionError("the build log has no ptxas report of the pass C kernels")
+    k4 = [k for k in ptxas_report(build_log) if "sag_lanes" in k["name"] or "sag_counts" in k["name"]]
+    if not all(any(f"sag_{p}_kernel" in k["name"] for k in k4) for p in ("lanes_a", "lanes_c", "counts")):
+        raise AssertionError("the build log has no ptxas report of the K1 or K4 A/C kernels")
     spilled = []
     for k, name in zip(k4, demangle([k["name"] for k in k4])):
-        log(f"ptxas K4 {name}: {k['registers']} registers, {k['spill_stores']} B spill stores, "
+        log(f"ptxas {name}: {k['registers']} registers, {k['spill_stores']} B spill stores, "
             f"{k['spill_loads']} B spill loads, {k['stack']} B stack, {k['smem']} B static smem")
-        if ("lanes_c_kernel" in k["name"] or "lanes_e_kernel" in k["name"]) \
-                and k["spill_stores"] + k["spill_loads"] > 0:
+        if k["spill_stores"] + k["spill_loads"] > 0:
             spilled.append(name)
     if spilled:
-        raise AssertionError(f"K4 pass C/E kernels spill registers: {spilled}")
+        raise AssertionError(f"K1 or K4 pass A/C/E kernels spill registers: {spilled}")
     for n_ch in (5, 8):
+        for edge in (False, True):
+            log(f"K4 A edge={edge} n_ch={n_ch}: "
+                + json.dumps(sc.lanes_kernel_info("A", n_ch, (False, False, edge))))
         for flags in itertools.product([False, True], repeat=3):
             log(f"K4 C flags (moments, zernike, edge)={flags} n_ch={n_ch}: "
                 + json.dumps(sc.lanes_kernel_info("C", n_ch, flags)))
@@ -207,17 +211,33 @@ def log_k4_resources(build_log: str) -> None:
 
 
 def check_lane_adversarial(dev) -> float:
-    """K4 passes C and E on small adversarial sites against their f64 plain
-    forms (SUM_RTOL of each sum's rounding scale): every (moments, zernike,
-    edge) combination at 1, 5 and 8 channels, pass E at 2, 5 and 8, each at
-    max_cells 16 and 1024. Returns the largest difference."""
+    """K4 passes A, C and E on small adversarial sites against their f64
+    plain forms (SUM_RTOL of each sum's rounding scale; pass A's areas
+    exactly): pass A with and without edge lanes and every (moments,
+    zernike, edge) combination of C at 1, 5 and 8 channels, pass E at 2, 5
+    and 8, each at max_cells 16 and 1024. Returns the largest difference."""
     import torch
 
     from saguaro_tpu_torch.kernels import segment_cuda as sc
     from saguaro_tpu_torch.kernels.zernike import _radial_coeffs
-    from tests.torch_data import adversarial_lane_args_c, adversarial_lane_args_e
+    from tests.torch_data import (
+        adversarial_lane_args_a,
+        adversarial_lane_args_c,
+        adversarial_lane_args_e,
+    )
 
     worst, n = 0.0, 0
+    for n_ch, mc, edge in itertools.product((1, 5, 8), (16, 1024), (False, True)):
+        host = adversarial_lane_args_a(n_ch, mc, edge, seed=n_ch + mc)
+        args = [torch.as_tensor(a, device=dev) for a in host[:4]] + list(host[4:])
+        got = sc.seg_lane_sums_a(*args)
+        want = sc.lane_sums_a_plain(*args, dtype=torch.float64)
+        worst = max(worst, hold_sums(f"K4 pass A adversarial n_ch={n_ch} mc={mc} edge={edge}", got,
+                                     want, sc.lane_sums_a_plain(*args, magnitude=True,
+                                                                dtype=torch.float64)))
+        if not torch.equal(got[..., 0].double(), want[..., 0]):
+            raise AssertionError(f"K4 pass A adversarial n_ch={n_ch} mc={mc}: areas differ")
+        n += 1
     for n_ch, mc in itertools.product((1, 5, 8), (16, 1024)):
         for flags in itertools.product([False, True], repeat=3):
             host = adversarial_lane_args_c(n_ch, mc, *flags, _radial_coeffs(), seed=n_ch + mc)
@@ -237,7 +257,7 @@ def check_lane_adversarial(dev) -> float:
                                      sc.lane_sums_e_plain(*args, magnitude=True,
                                                           dtype=torch.float64)))
         n += 1
-    log(f"K4 C/E adversarial: {n} cases within tolerance, largest difference {worst:.3g}")
+    log(f"K4 A/C/E adversarial: {n} cases within tolerance, largest difference {worst:.3g}")
     return worst
 
 
@@ -257,8 +277,8 @@ def check_kernels(images, labels, dev):
     out, counters = {}, {}
 
     def entry(name, source, replaces, err, fn, plain, n_bytes, n_ops, library=None, reps=10,
-              counter=None):
-        counters[name] = counter or name
+              counter=None, site=None):
+        counters[name] = (counter or name) if site is None else (counter, site)
         t_b, by = bound(n_bytes, n_ops)
         out[name] = {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -271,21 +291,8 @@ def check_kernels(images, labels, dev):
         log(f"{name}: err {e['max_abs_err']:.3g} kernel {e['ms']:.3f} ms plain {e['plain_ms']:.3f} ms "
             f"bound {e['bound_ms']:.3f} ms ({by}) library {e['library_ms']}")
 
-    # K1: the Otsu histogram of the cell-body channel mean (256 bins per site)
-    body = img[..., 1:].mean(dim=-1).reshape(b, n)
-    lo, hi = body.amin(dim=1, keepdim=True), body.amax(dim=1, keepdim=True)
-    q = torch.clamp((body - lo) / torch.clamp(hi - lo, min=1e-12) * 256, 0, 255).to(torch.int32)
-    codes = torch.zeros((b, 1, n), dtype=torch.int32, device=dev)
-    got = sc.seg_counts(q, codes, (1,), 256)
-    want = sc.counts_plain(q, codes, (1,), 256)
-    torch.cuda.synchronize()
-    if not torch.equal(got, want):
-        raise AssertionError("K1 counts differ from the plain form")
-    keys = (q.long() + torch.arange(b, device=dev)[:, None] * 256).reshape(-1)
-    entry("seg_counts", "saguaro_tpu_torch/csrc/counts.cu", f"{PALLAS}:252", 0.0,
-          lambda: sc.seg_counts(q, codes, (1,), 256), lambda: sc.counts_plain(q, codes, (1,), 256),
-          n_bytes=8.0 * b * n + 4.0 * b * 256, n_ops=float(b * n),
-          library=lambda: torch.bincount(keys, minlength=b * 256))
+    # K1 at every shape the measurement gives it
+    check_counts_shapes(images, labels, dev, entry)
 
     # K2: centroid + channel-max table gather, with empty-label sentinels
     flat = lab.reshape(b, n)
@@ -369,8 +376,7 @@ def check_kernels(images, labels, dev):
 
 
 def check_family_kernels(img, lab, seg, entry):
-    """K1 at texture's 20 code planes and at colocalization's value-keyed
-    tables, K5, K4 radial, K6 and K4 pass E on the inputs the default
+    """K5, K4 radial, K6 and K4 pass E on the inputs the default
     FeatureConfig's families give them at the main path's shapes: the
     nuclei and, for the rank pick, the three object sets (cells grown 8
     rings over the cell-body channels)."""
@@ -378,9 +384,7 @@ def check_family_kernels(img, lab, seg, entry):
 
     from saguaro_tpu_torch.kernels import colocalization as coloc
     from saguaro_tpu_torch.kernels import segment_cuda as sc
-    from saguaro_tpu_torch.kernels.glcm import glcm_pair_codes, quantize_channels
     from saguaro_tpu_torch.kernels.morphology import expand_labels, tertiary_objects
-    from saguaro_tpu_torch.kernels.onehot_reduce import mxu_take_t
     from saguaro_tpu_torch.kernels.radial import cp_ring_wedge
     from saguaro_tpu_torch.kernels.shape_extra import _edt_sweep_inputs
 
@@ -391,17 +395,7 @@ def check_family_kernels(img, lab, seg, entry):
     site = torch.arange(b, device=dev)[:, None]
     big = 3.4e38
     idx = seg.long()[..., None].expand(b, n, n_ch)
-    vmin = torch.full((b, MAX_CELLS, n_ch), big, device=dev).scatter_reduce_(1, idx, vr, "amin")
     vmax = torch.full((b, MAX_CELLS, n_ch), -big, device=dev).scatter_reduce_(1, idx, vr, "amax")
-
-    # K1 at texture's shape: 5 channels x 4 directions of 136 triangular
-    # pair codes over per-object 16-level grey levels, distance 3
-    g = mxu_take_t(torch.cat([vmin, torch.clamp(vmax - vmin, min=1e-12)], dim=2), seg, MAX_CELLS)
-    q_mc = quantize_channels(img, lab, 16, (g[:, :n_ch], g[:, n_ch:]))
-    g_lab, planes = glcm_pair_codes(lab, MAX_CELLS, 16, 3, q_mc)
-    del g, q_mc
-    check_counts("seg_counts[texture]", g_lab, planes, MAX_CELLS, entry)
-    del planes, g_lab
 
     # K5: the EDT sweep of the nuclei at the default max_radius
     radius = 64
@@ -469,8 +463,6 @@ def check_family_kernels(img, lab, seg, entry):
     torch.cuda.synchronize()
     if not torch.equal(ranks_all, sc.pick2_plain(hi, lo, tables)):
         raise AssertionError("K6 rank pick differs from the plain form")
-    check_counts_by_value(hi, lo, vr / norm[:, None, None], insides,
-                          lambda *a: check_counts(*a, entry))
     k_sets = tables.shape[4]
     flat_t = tables.view(b, n_ch, 65536, k_sets)
     p_idx = hi.long() * 256 + lo.long()
@@ -507,50 +499,126 @@ def check_family_kernels(img, lab, seg, entry):
           counter="seg_lane_sums_e")
 
 
-def check_counts(name, labels, planes, n_labels, entry):
-    """K1 on one ``onehot_counts`` call's inputs (labels (B, N), [(code
-    (B, N), valid (B, N), n_codes), ...]): exactly against the plain form,
-    timed beside one ``torch.bincount`` over every plane's keys."""
+# K1's call sites on the main path (file, function) and the names of their
+# rows; a site that gives K1 two shapes is told apart by its planes
+K1_SITES = {
+    ("thresholding.py", "_hist"): "seg_counts",
+    ("shape_extra.py", "radius_features"): "seg_counts[radius {}]",
+    ("glcm.py", "object_glcm_multichannel"): "seg_counts[texture]",
+    ("objects_extra.py", "_two_level_ranks"): "seg_counts[{}]",
+    ("objects_extra.py", "neighbor_features"): "seg_counts[{}]",
+    ("colocalization.py", "_value_count_tables"): "seg_counts[rank values]",
+    ("colocalization.py", "_joint_tables"): "seg_counts[costes joint{}]",
+}
+
+
+class K1Sites:
+    """Wraps ``seg_counts`` while active: tallies K1's launches by call site
+    (the caller of ``onehot_counts``: file, function, line, max_cells,
+    sizes) and, with ``keep``, keeps each site's first inputs."""
+
+    def __init__(self, keep: bool):
+        from saguaro_tpu_torch.kernels import segment_cuda as sc
+
+        self.sc, self.keep, self.calls, self.inputs = sc, keep, {}, {}
+
+    def __enter__(self):
+        real = self.real = self.sc.seg_counts
+
+        def counted(labels, codes, sizes, max_cells):
+            f = sys._getframe(1)
+            while f.f_code.co_name != "onehot_counts":
+                f = f.f_back
+            f = f.f_back
+            key = (os.path.basename(f.f_code.co_filename), f.f_code.co_name, f.f_lineno,
+                   max_cells, tuple(sizes))
+            self.calls[key] = self.calls.get(key, 0) + 1
+            if self.keep and key not in self.inputs:
+                self.inputs[key] = (labels, codes)
+            return real(labels, codes, sizes, max_cells)
+
+        self.sc.seg_counts = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.sc.seg_counts = self.real
+
+    def names(self) -> dict:
+        """Call site -> its row's name in the kernels line."""
+        out = {}
+        first_rank = min((k[2] for k in self.calls if k[1] == "_two_level_ranks"), default=None)
+        for key in self.calls:
+            fname, func, line, mc, sizes = key
+            fmt = K1_SITES.get((fname, func), f"seg_counts[{fname}:{func}:{line}]")
+            if func == "radius_features":
+                label = "coarse" if len(sizes) == 1 else "fine"
+            elif func == "_two_level_ranks":
+                label = ("quantile level 1" if line == first_rank else
+                         "quantile levels 2-4" if len(sizes) > len(CHANNELS) else "MAD levels 2-4")
+            elif func == "neighbor_features":
+                label = "neighbour pairs" if sizes[0] > 1 else "PercentTouching"
+            elif func == "_joint_tables":
+                label = "" if len(sizes) == 8 else f" {len(sizes)}"
+            else:
+                label = ""
+            out[key] = fmt.format(label)
+        return out
+
+
+def check_counts_shapes(images, labels, dev, entry):
+    """K1 at every shape the main path gives it: one ``measure_site_batch``
+    at the default FeatureConfig with each call site's first inputs kept,
+    then each site's call held exactly against the plain form and timed
+    beside one ``torch.bincount`` over every plane's keys. The bound counts
+    what this run's inputs need: every label, the codes of the pixels whose
+    label lies in [0, max_cells) (``onehot_counts`` gives the pixels outside
+    its caller's ``label_valid`` label -1), the table written once, and one
+    operation a valid key. Logs each shape's plan, the kernel's resources
+    under it, and the time of ``onehot_counts``' label mask (one
+    ``torch.where`` over the labels), which the K1 rows leave out."""
     import torch
 
     from saguaro_tpu_torch.kernels import segment_cuda as sc
+    from saguaro_tpu_torch.pipeline.features import measure_site_batch
 
-    lab = labels.to(torch.int32).contiguous()
-    codes = torch.stack([torch.where(v, c.to(torch.int32), -1) for c, v, _ in planes],
-                        dim=1).contiguous()
-    sizes = tuple(nc for _, _, nc in planes)
-    got = sc.seg_counts(lab, codes, sizes, n_labels)
+    with K1Sites(keep=True) as rec:
+        measure_site_batch(images, labels, feature_config(), device=dev)
     torch.cuda.synchronize()
-    if not torch.equal(got, sc.counts_plain(lab, codes, sizes, n_labels)):
-        raise AssertionError(f"K1 {name} differs from the plain form")
-    b, n_q, n = codes.shape
-    total = sum(sizes)
-    size = b * n_labels * total
-    site = torch.arange(b, device=lab.device)[:, None, None]
-    offs = torch.tensor(np.cumsum((0,) + sizes[:-1]), device=lab.device)[None, :, None]
-    keys = torch.where(codes >= 0, site * (n_labels * total) + lab.long()[:, None, :] * total
-                       + offs + codes, size).reshape(-1)
-    entry(name, "saguaro_tpu_torch/csrc/counts.cu", f"{PALLAS}:252", 0.0,
-          lambda: sc.seg_counts(lab, codes, sizes, n_labels),
-          lambda: sc.counts_plain(lab, codes, sizes, n_labels),
-          n_bytes=4.0 * b * n * (1 + n_q) + 4.0 * size, n_ops=float(b * n * n_q),
-          library=lambda: torch.bincount(keys, minlength=size + 1), counter="seg_counts")
-
-
-def check_counts_by_value(hi, lo, vn, insides, check):
-    """K1 keyed by intensity instead of object label, as colocalization
-    uses it: the first channel's (hi byte, lo byte) value counts over the
-    nuclei and cytoplasm (256 "labels" x 512 columns), and the Costes joint
-    tables of the first channel against the four others over the same two
-    sets (256 x 2048). Neither key is spatially coherent, and both tables
-    exceed shared memory, so both take the kernel's global-memory path."""
-    import torch
-
-    masks = [insides["Nuclei"], insides["Cytoplasm"]]
-    code_s = torch.clamp((vn * 255).to(torch.int32), 0, 255)
-    check("seg_counts[rank values]", hi[:, :, 0], [(lo[:, :, 0], m, 256) for m in masks], 256)
-    check("seg_counts[costes joint]", code_s[:, :, 0],
-          [(code_s[:, :, c], m, 256) for c in range(1, vn.shape[2]) for m in masks], 256)
+    log(f"K1: {sum(rec.calls.values())} launches a batch at {len(rec.calls)} call sites")
+    names = rec.names()
+    for key, (lab, codes) in rec.inputs.items():
+        _, _, _, mc, sizes = key
+        name = names[key]
+        b, n_q, n = codes.shape
+        plan = sc.counts_plan(mc, sizes, b, n, torch.cuda.get_device_properties(dev).multi_processor_count)
+        log(f"{name} {key[:3]}: {rec.calls[key]} launches a batch, max_cells {mc}, {n_q} planes "
+            f"{sorted(set(sizes))}; plan {plan}; {json.dumps(sc.counts_kernel_info(plan))}")
+        got = sc.seg_counts(lab, codes, sizes, mc)
+        torch.cuda.synchronize()
+        if not torch.equal(got, sc.counts_plain(lab, codes, sizes, mc)):
+            raise AssertionError(f"K1 {name} differs from the plain form")
+        del got
+        total = sum(sizes)
+        size = b * mc * total
+        site = torch.arange(b, device=dev)[:, None, None]
+        offs = torch.tensor(np.cumsum((0,) + sizes[:-1]), device=dev)[None, :, None]
+        lab_l = lab.long()[:, None, :]
+        ok = (codes >= 0) & (lab_l >= 0) & (lab_l < mc)
+        keys = torch.where(ok, site * (mc * total) + lab_l * total + offs + codes, size).reshape(-1)
+        n_keys = float(ok.sum())
+        n_labelled = float(((lab >= 0) & (lab < mc)).sum())
+        del ok, lab_l
+        keep = lab >= 0
+        mask_ms = time_ms(lambda: torch.where(keep, lab, -1), 10)
+        log(f"{name}: {n_labelled / (b * n):.4f} of the pixels labelled, {n_keys:.0f} valid keys; "
+            f"onehot_counts' label mask {mask_ms:.4f} ms")
+        entry(name, "saguaro_tpu_torch/csrc/counts.cu", f"{PALLAS}:252", 0.0,
+              lambda: sc.seg_counts(lab, codes, sizes, mc),
+              lambda: sc.counts_plain(lab, codes, sizes, mc),
+              n_bytes=4.0 * b * n + 2.0 * n_labelled * n_q + 4.0 * size, n_ops=n_keys,
+              library=lambda: torch.bincount(keys, minlength=size + 1), counter="seg_counts",
+              site=key)
+        del keys, keep
 
 
 def hold_resample(name, imgs, out_shape):
@@ -1028,23 +1096,34 @@ def main() -> int:
     log(f"{N_SITES} sites {SIZE}x{SIZE}x{len(CHANNELS)}, {n_cells} cells/site")
     check_lane_adversarial(dev)
     kernels, counters = check_kernels(images, gt, dev)
-    # K1-K6 run on the feature-extraction path, K7 on the pixel path
-    measure_kernels = sorted(set(counters.values()) - {"lanczos_resize"})
+    # K1-K6 run on the feature-extraction path, K7 on the pixel path; a K1
+    # row's counter is ("seg_counts", its call site)
+    measure_kernels = sorted({c if isinstance(c, str) else c[0] for c in counters.values()}
+                             - {"lanczos_resize"})
 
     check_small_against_cpu(dev)
 
     sc.reset_launch_counts()
-    tables, rec, secs = run_main_path(images, gt, dev)
-    torch.cuda.synchronize()
+    with K1Sites(keep=False) as k1_sites:
+        tables, rec, secs = run_main_path(images, gt, dev)
+        torch.cuda.synchronize()
     launches = dict(sc.LAUNCHES)
     log(f"main path launches {launches}; s/site " + ", ".join(f"{k} {v:.4f}" for k, v in secs.items()))
+    log("main path K1 launches by call site and shape (max_cells x planes): " + "; ".join(
+        f"{k1_sites.names()[k]} {k[:3]} {k[3]} x {len(k[4])} planes {sorted(set(k[4]))}: {c}"
+        for k, c in k1_sites.calls.items()))
+    if sum(k1_sites.calls.values()) != launches["seg_counts"]:
+        raise AssertionError(f"K1's call sites {k1_sites.calls} do not add up to its "
+                             f"{launches['seg_counts']} launches")
     check_recovery(rec, gt)
     check_tables(tables, n_cells)
     missing = [k for k in measure_kernels if launches[k] < 1]
+    missing += [n for n, c in counters.items() if isinstance(c, tuple) and c[1] not in k1_sites.calls]
     if missing:
         raise AssertionError(f"the main path did not launch {missing}")
     for name, entry in kernels.items():
-        entry["launches"] = launches[counters[name]]
+        c = counters[name]
+        entry["launches"] = launches[c] if isinstance(c, str) else k1_sites.calls[c[1]]
 
     sc.reset_launch_counts()
     run_job(images, gt, dev)

@@ -16,16 +16,18 @@
 // table row. Every lane is a multiple of the pixel's inside flag (label >
 // 0), so background pixels contribute nothing.
 //
-// Bound on the H100: bytes. Pass C reads 25 B a pixel at 5 channels (label,
-// channels, border byte) and builds 110 lanes, pass E 44 B (label, channels,
-// ranks) and 85 lanes: a few hundred flops a labelled pixel, far below the
-// card's ~20 flops/byte ridge for f32. The first port of C and E was bound
-// by neither: every lane of every 32-pixel warp step went through a 5-step
-// shuffle reduction and a shared atomic, each block rebuilt all lanes and
-// kept a third, and pass E's 174 KB shared accumulator left one 8-warp
-// block a SM (7.15 and 3.16 ms at chip_smoke's 8 x 1080^2 x 5 channels).
+// Bound on the H100: bytes. Pass A reads 29 B a pixel at 5 channels (label,
+// channels, perimeter weight, border byte) and builds 40 lanes, pass C 25 B
+// (label, channels, border byte) and 110 lanes, pass E 44 B (label,
+// channels, ranks) and 85 lanes: a few hundred flops a labelled pixel, far
+// below the card's ~20 flops/byte ridge for f32. The first port of A, C
+// and E was bound by neither: every lane of every 32-pixel warp step went
+// through a 5-step shuffle reduction and a shared atomic, each block
+// rebuilt all lanes and kept a share, and the shared accumulators (96 KB
+// for A, 174 KB for E) left few blocks a SM (1.04, 7.15 and 3.16 ms at
+// chip_smoke's 8 x 1080^2 x 5 channels).
 //
-// Passes C and E (the run kernels below) instead:
+// Passes A, C and E (the run kernels below) instead:
 // - walk strips: a thread owns 64 consecutive pixels of the flat raster and
 //   keeps its lanes' partial sums in registers while the slot stays the
 //   same (inside an object a raster row gives one label for tens of
@@ -44,12 +46,14 @@
 //   non-zero coefficients (SAG_ZERNIKE_N/M below, copied to shared memory
 //   once a block). Pass E has a group per SAG_E_PAIRS channel pairs, the
 //   first also holding the tot_thr lanes (one group at up to 5 channels);
-//   the pairs' channels and constants sit in shared memory. The blocks of
+//   the pairs' channels and constants sit in shared memory. Pass A has one
+//   group (up to 73 sums); it reads the perimeter weight and the border
+//   byte in the walk. The blocks of
 //   one span run next to each other, so a second group reads it from L2;
 // - flush straight to the (B, mc, lanes) output with global float atomics
 //   (red.global.add), each lane's offset computed in the body: no shared
 //   accumulator, so any mc fits and shared memory holds only the staged
-//   pixels (24 KB a block for C at 5 channels, 44 KB for E).
+//   pixels (24 KB a block for A and C at 5 channels, 44 KB for E).
 // Measured on an H100 SXM at 700 W with chip_smoke's inputs
 // (tools/k4_variants.py, which times text-patched variants of this file;
 // PERF.md §6). Along the way: four lane groups for C cost about 0.1 ms
@@ -69,130 +73,9 @@
 #include "common.cuh"
 
 #define SAG_MAX_CH 8
-#define SAG_LANES_SMEM (96 * 1024)
 
 // ---------------------------------------------------------------------------
-// pass A: warp-reduced lanes into a shared (lane group x mc) accumulator
-
-struct SagPixel {
-  float y, x, in, bnd;
-  float vr[SAG_MAX_CH];
-};
-
-__device__ __forceinline__ void sag_load_pixel(SagPixel& p, const float* image_site,
-                                               const uint8_t* border_site, long long i,
-                                               bool act, int n_ch, int w) {
-  p.y = (float)(i / w);
-  p.x = (float)(i - (i / w) * w);
-  p.in = act ? 1.0f : 0.0f;
-  p.bnd = act && border_site[i] ? 1.0f : 0.0f;
-#pragma unroll
-  for (int c = 0; c < SAG_MAX_CH; ++c) {
-    p.vr[c] = (act && c < n_ch) ? image_site[(size_t)i * n_ch + c] : 0.0f;
-  }
-}
-
-// pass A: [in, y*in, x*in, b, pw, v(C), y*v(C), x*v(C), (vr*b)(C) if edge,
-//          vr*v (C), vr_a*v_b for a < b]  with v = vr*in
-template <bool WITH_EDGE>
-__device__ __forceinline__ void sag_lanes_a(SagAcc& acc, const SagPixel& p, float pw,
-                                            int n_ch) {
-  float v[SAG_MAX_CH];
-#pragma unroll
-  for (int c = 0; c < SAG_MAX_CH; ++c) v[c] = p.vr[c] * p.in;
-  int l = 0;
-  acc.add(l++, p.in);
-  acc.add(l++, p.y * p.in);
-  acc.add(l++, p.x * p.in);
-  acc.add(l++, p.bnd);
-  acc.add(l++, pw);
-#pragma unroll
-  for (int c = 0; c < SAG_MAX_CH; ++c)
-    if (c < n_ch) acc.add(l++, v[c]);
-#pragma unroll
-  for (int c = 0; c < SAG_MAX_CH; ++c)
-    if (c < n_ch) acc.add(l++, p.y * v[c]);
-#pragma unroll
-  for (int c = 0; c < SAG_MAX_CH; ++c)
-    if (c < n_ch) acc.add(l++, p.x * v[c]);
-  if (WITH_EDGE) {
-#pragma unroll
-    for (int c = 0; c < SAG_MAX_CH; ++c)
-      if (c < n_ch) acc.add(l++, p.vr[c] * p.bnd);
-  }
-#pragma unroll
-  for (int c = 0; c < SAG_MAX_CH; ++c)
-    if (c < n_ch) acc.add(l++, p.vr[c] * v[c]);
-#pragma unroll
-  for (int a = 0; a < SAG_MAX_CH; ++a)
-#pragma unroll
-    for (int bb = a + 1; bb < SAG_MAX_CH; ++bb)
-      if (bb < n_ch) acc.add(l++, p.vr[a] * v[bb]);
-}
-
-template <bool WITH_EDGE>
-__global__ void __launch_bounds__(SAG_THREADS)
-sag_lanes_a_kernel(const int* __restrict__ labels, const float* __restrict__ image,
-                   const float* __restrict__ pweight, const uint8_t* __restrict__ border,
-                   float* __restrict__ out, long long n, int w, int n_ch, int mc, int n_lanes,
-                   int group) {
-  extern __shared__ float acc_sh[];
-  const int b = blockIdx.z;
-  const int g0 = blockIdx.x * group;
-  const int g1 = min(g0 + group, n_lanes);
-  for (int j = threadIdx.x; j < (g1 - g0) * mc; j += blockDim.x) acc_sh[j] = 0.0f;
-  __syncthreads();
-
-  SagAcc acc;
-  acc.sh = acc_sh;
-  acc.mc = mc;
-  acc.g0 = g0;
-  acc.g1 = g1;
-  const int* lab_site = labels + (size_t)b * n;
-  const float* image_site = image + (size_t)b * n * n_ch;
-  const uint8_t* border_site = border + (size_t)b * n;
-  const long long stride = (long long)gridDim.y * blockDim.x;
-  for (long long start = (long long)blockIdx.y * blockDim.x; start < n; start += stride) {
-    const long long i = start + threadIdx.x;
-    const int raw = i < n ? lab_site[i] : 0;
-    // every lane is a multiple of the inside flag: only labelled pixels count
-    const bool act = raw > 0;
-    const int lab = (act && raw < mc) ? raw : 0;
-    if (!sag_warp_setup(acc, act, lab)) continue;
-    SagPixel p;
-    sag_load_pixel(p, image_site, border_site, act ? i : 0, act, n_ch, w);
-    const float pw = act ? pweight[(size_t)b * n + i] : 0.0f;
-    sag_lanes_a<WITH_EDGE>(acc, p, pw, n_ch);
-  }
-  __syncthreads();
-  sag_flush(acc_sh, out + (size_t)b * mc * n_lanes, mc, n_lanes, g0, g1);
-}
-
-// Pass A. labels (B, h*w) int32 raw; image (B, h*w, C) f32; pweight (B, h*w)
-// f32; border (B, h*w) uint8; out (B, mc, n_lanes) f32 zero-filled.
-extern "C" int sag_lanes_a(const int* labels, const float* image, const float* pweight,
-                           const uint8_t* border, float* out, int batch, int h, int w,
-                           int n_ch, int mc, int with_edge, int n_lanes, void* stream) {
-  if (n_ch < 1 || n_ch > SAG_MAX_CH) return (int)cudaErrorInvalidValue;
-  const long long n = (long long)h * w;
-  const int group = sag_group_width(n_lanes, mc, SAG_LANES_SMEM);
-  if (group == 0) return (int)cudaErrorInvalidValue;
-  const int n_groups = (n_lanes + group - 1) / group;
-  const size_t smem = (size_t)group * mc * sizeof(float);
-  auto kernel = with_edge ? sag_lanes_a_kernel<true> : sag_lanes_a_kernel<false>;
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  dim3 grid(n_groups, sag_chunks(n, batch * n_groups), batch);
-  kernel<<<grid, SAG_THREADS, smem, (cudaStream_t)stream>>>(labels, image, pweight, border, out,
-                                                            n, w, n_ch, mc, n_lanes, group);
-  return sag_status();
-}
-
-// ---------------------------------------------------------------------------
-// passes C and E: register runs over staged pixel strips
+// passes A, C and E: register runs over staged pixel strips
 
 #define SAG_RUN_THREADS 128
 #define SAG_STEP_PX 4                                    // pixels of a strip per step
@@ -747,6 +630,132 @@ static inline int sag_vec(long long n, const void* a, const void* b, const void*
   return n % 4 == 0 && bits % 16 == 0;
 }
 
+// Pass A: [in, y*in, x*in, bnd, pw, v (C), y*v (C), x*v (C), (vr*bnd) (C)
+// if E, vr*v (C), vr_a*v_b for a < b] with v = vr*in. The walk visits only
+// labelled pixels, so in = 1 and v = vr here. The border flag and the
+// perimeter weight are read in the walk; the accumulators of channels >=
+// n_ch stay unused. 5 + 4 * 8 + 8 + 28 = 73 sums at 8 channels with E.
+template <bool E>
+struct SagA {
+  static constexpr int O_EDGE = 5 + 3 * SAG_MAX_CH;
+  static constexpr int O_QUAD = O_EDGE + (E ? SAG_MAX_CH : 0);
+  static constexpr int NACC = O_QUAD + SAG_MAX_CH + SAG_MAX_CH * (SAG_MAX_CH - 1) / 2;
+  const uint8_t* __restrict__ border;  // this site's border flags
+  const float* __restrict__ pweight;   // this site's perimeter weights
+  int w, n_ch, ix, iy;
+  float acc[NACC];
+  __device__ __forceinline__ void start(long long i) {
+    iy = (int)(i / w);
+    ix = (int)(i - (long long)iy * w);
+  }
+  __device__ __forceinline__ void advance() {
+    if (++ix == w) {
+      ix = 0;
+      ++iy;
+    }
+  }
+  __device__ __forceinline__ void row(int) {}
+  __device__ __forceinline__ void pixel(const float* v, const float*, long long i) {
+    const float y = (float)iy, x = (float)ix;
+    const float bnd = __ldg(border + i) ? 1.0f : 0.0f;
+    acc[0] += 1.0f;
+    acc[1] += y;
+    acc[2] += x;
+    acc[3] += bnd;
+    acc[4] += __ldg(pweight + i);
+#pragma unroll
+    for (int c = 0; c < SAG_MAX_CH; ++c) {
+      if (c < n_ch) {
+        const float vc = v[c];
+        acc[5 + c] += vc;
+        acc[5 + SAG_MAX_CH + c] += y * vc;
+        acc[5 + 2 * SAG_MAX_CH + c] += x * vc;
+        if constexpr (E) acc[O_EDGE + c] += vc * bnd;
+        acc[O_QUAD + c] += vc * vc;
+      }
+    }
+    int l = O_QUAD + SAG_MAX_CH;
+#pragma unroll
+    for (int a = 0; a < SAG_MAX_CH; ++a) {
+#pragma unroll
+      for (int bb = a + 1; bb < SAG_MAX_CH; ++bb) {
+        if (bb < n_ch) acc[l] += v[a] * v[bb];
+        ++l;
+      }
+    }
+  }
+  // output lanes at n_ch channels: the five scalars, v at 5 + c, y*v at
+  // 5 + n_ch + c, x*v at 5 + 2 n_ch + c, [edge at 5 + 3 n_ch + c], vr*v
+  // next, then pair (a, b) at its index in (0,1), (0,2), ...
+  __device__ __forceinline__ void flush(float* out_row) {
+#pragma unroll
+    for (int k = 0; k < 5; ++k) sag_red(out_row + k, acc[k]);
+    float* q = out_row + 5;
+#pragma unroll
+    for (int t = 0; t < (E ? 5 : 4); ++t) {
+      const int o = t < 3 ? 5 + t * SAG_MAX_CH : (t == 3 && E ? O_EDGE : O_QUAD);
+#pragma unroll
+      for (int c = 0; c < SAG_MAX_CH; ++c)
+        if (c < n_ch) sag_red(q + c, acc[o + c]);
+      q += n_ch;
+    }
+    int l = O_QUAD + SAG_MAX_CH;
+#pragma unroll
+    for (int a = 0; a < SAG_MAX_CH; ++a) {
+      float* pa = q + a * n_ch - a * (a + 1) / 2 - a - 1;
+#pragma unroll
+      for (int bb = a + 1; bb < SAG_MAX_CH; ++bb) {
+        if (bb < n_ch) sag_red(pa + bb, acc[l]);
+        ++l;
+      }
+    }
+  }
+};
+
+// Pass A: one lane group (blockIdx.x = 0), blockIdx.y = span of SAG_SPAN
+// pixels, blockIdx.z = site.
+template <bool E>
+__global__ void __launch_bounds__(SAG_RUN_THREADS, SAG_RUN_MIN_BLOCKS)
+sag_lanes_a_kernel(const int* __restrict__ labels, const float* __restrict__ image,
+                   const float* __restrict__ pweight, const uint8_t* __restrict__ border,
+                   float* __restrict__ out, long long n, int w, int n_ch, int mc, int n_lanes,
+                   int vec) {
+  const int b = blockIdx.z;
+  SagA<E> body;
+  body.border = border + (size_t)b * n;
+  body.pweight = pweight + (size_t)b * n;
+  body.w = w;
+  body.n_ch = n_ch;
+#pragma unroll
+  for (int k = 0; k < SagA<E>::NACC; ++k) body.acc[k] = 0.0f;
+  const int* lab_site = labels + (size_t)b * n;
+  const float* image_site = image + (size_t)b * n * n_ch;
+  float* out_site = out + (size_t)b * mc * n_lanes;
+  if (vec)
+    sag_run_strips<true>(body, lab_site, image_site, nullptr, n, n_ch, mc, out_site, n_lanes);
+  else
+    sag_run_strips<false>(body, lab_site, image_site, nullptr, n, n_ch, mc, out_site, n_lanes);
+}
+
+typedef void (*SagAKernel)(const int*, const float*, const float*, const uint8_t*, float*,
+                           long long, int, int, int, int, int);
+
+static SagAKernel sag_a_kernel(int with_edge) {
+  return with_edge ? sag_lanes_a_kernel<true> : sag_lanes_a_kernel<false>;
+}
+
+// Pass A. labels (B, h*w) int32 raw; image (B, h*w, C) f32; pweight (B, h*w)
+// f32; border (B, h*w) uint8; out (B, mc, n_lanes) f32 zero-filled.
+extern "C" int sag_lanes_a(const int* labels, const float* image, const float* pweight,
+                           const uint8_t* border, float* out, int batch, int h, int w,
+                           int n_ch, int mc, int with_edge, int n_lanes, void* stream) {
+  if (n_ch < 1 || n_ch > SAG_MAX_CH || mc < 1) return (int)cudaErrorInvalidValue;
+  const long long n = (long long)h * w;
+  return sag_run_launch(sag_a_kernel(with_edge), 1, batch, n, sag_run_smem(n_ch, 1),
+                        (cudaStream_t)stream, labels, image, pweight, border, out, n, w, n_ch, mc,
+                        n_lanes, sag_vec(n, labels, image, image));
+}
+
 static SagCKernel sag_c_kernel(int flags) {
   switch (flags) {
     case 0: return sag_lanes_c_kernel<false, false, false>;
@@ -793,12 +802,14 @@ extern "C" int sag_lanes_e(const int* labels, const float* image, const float* r
                         sag_vec(n, labels, image, ranks));
 }
 
-// Resources of a run kernel (pass 1 = C with flags M*4 + Z*2 + E, pass 2 =
-// E) at n_ch channels: info = {registers a thread, local bytes a thread,
-// dynamic shared bytes a block, resident blocks a SM}.
+// Resources of a run kernel (pass 0 = A with flags & 1 = edge, pass 1 = C
+// with flags M*4 + Z*2 + E, pass 2 = E) at n_ch channels: info = {registers
+// a thread, local bytes a thread, dynamic shared bytes a block, resident
+// blocks a SM}.
 extern "C" int sag_lanes_info(int pass, int flags, int n_ch, int* info) {
-  const void* fn = pass == 1 ? (const void*)sag_c_kernel(flags)
-                             : (pass == 2 ? (const void*)sag_lanes_e_kernel : nullptr);
+  const void* fn = pass == 0   ? (const void*)sag_a_kernel(flags & 1)
+                   : pass == 1 ? (const void*)sag_c_kernel(flags)
+                               : (pass == 2 ? (const void*)sag_lanes_e_kernel : nullptr);
   if (fn == nullptr || n_ch < 1 || n_ch > SAG_MAX_CH) return (int)cudaErrorInvalidValue;
   const int smem = sag_run_smem(n_ch, pass == 2 ? 2 : 1);
   cudaFuncAttributes attr;

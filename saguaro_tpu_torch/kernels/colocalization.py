@@ -29,6 +29,8 @@ labels (B, H, W); per-object outputs (B, max_cells).
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -76,8 +78,10 @@ def _value_count_tables(hi: torch.Tensor, lo: torch.Tensor, insides: list) -> to
     """Per (channel, mask) (hi, lo) byte-count tables: hi, lo (B, N, C),
     insides M masks (B, N) -> (B, C, 256, 256, M)."""
     out = []
+    any_in = functools.reduce(torch.logical_or, insides)
     for c in range(hi.shape[2]):
-        cnts = onehot_counts(hi[:, :, c], [(lo[:, :, c], m, 256) for m in insides], 256)
+        cnts = onehot_counts(hi[:, :, c], [(lo[:, :, c], m, 256) for m in insides], 256,
+                             label_valid=any_in)
         out.append(torch.stack(cnts, dim=-1))
     return torch.stack(out, dim=1)
 
@@ -97,9 +101,11 @@ def _joint_tables(code_s, pairs, insides, s_codes):
     for a, b in pairs:
         by_a.setdefault(a, []).append(b)
     joint = [{} for _ in insides]
+    any_in = functools.reduce(torch.logical_or, insides)
     for a, bs in by_a.items():
         outs = onehot_counts(
-            code_s[:, :, a], [(code_s[:, :, b], m, s_codes) for b in bs for m in insides], s_codes
+            code_s[:, :, a], [(code_s[:, :, b], m, s_codes) for b in bs for m in insides], s_codes,
+            label_valid=any_in,
         )
         i = 0
         for b in bs:

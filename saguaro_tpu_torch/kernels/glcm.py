@@ -120,7 +120,8 @@ def object_glcm_multichannel(
     ignored slot 0)."""
     b, n_ch = quantized.shape[:2]
     lab, planes = glcm_pair_codes(labels, max_cells, levels, distance, quantized)
-    hs = onehot_counts(lab, planes, max_cells)
+    # every pair plane needs its first pixel inside an object
+    hs = onehot_counts(lab, planes, max_cells, label_valid=(labels > 0).reshape(b, -1))
     sym = _tri_expand(torch.stack(hs, dim=1), levels)  # (B, C*4, mc, L, L)
     sym = sym.view(b, n_ch, 4, max_cells, levels, levels)
     total = sym.sum(dim=(4, 5), keepdim=True)

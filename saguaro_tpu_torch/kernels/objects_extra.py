@@ -63,7 +63,7 @@ def _two_level_ranks(seg, inside, codes16, ranks, nm1, n_ch, max_cells, bits=(4,
     nq = len(ranks)
     shift = 16 - bits[0]
     h1 = onehot_counts(seg, [(codes16[:, c] >> shift, inside, 1 << bits[0]) for c in range(n_ch)],
-                       max_cells)
+                       max_cells, label_valid=inside)
     cum1 = torch.cumsum(torch.stack(h1, dim=-1), dim=2)  # (B, mc, nb0, C)
     prefix, rems = [], []
     for r in ranks:
@@ -82,7 +82,7 @@ def _two_level_ranks(seg, inside, codes16, ranks, nm1, n_ch, max_cells, bits=(4,
             for c in range(n_ch):
                 m = inside & ((codes16[:, c] >> shift) == p_sel[:, qi * n_ch + c])
                 entries.append(((codes16[:, c] >> new_shift) & (nb - 1), m, nb))
-        hs = onehot_counts(seg, entries, max_cells)
+        hs = onehot_counts(seg, entries, max_cells, label_valid=inside)
         new_prefix, new_rems = [], []
         for qi in range(nq):
             cum = torch.cumsum(torch.stack(hs[qi * n_ch : (qi + 1) * n_ch], dim=-1), dim=2)
@@ -230,14 +230,15 @@ def neighbor_features(
         is_pair = (me > 0) & (other > 0) & (me != other)
         touching = touching | is_pair
         codes.append((other.reshape(b, -1), is_pair.reshape(b, -1), max_cells))
-    hists = onehot_counts(me.reshape(b, -1), codes, max_cells)
+    hists = onehot_counts(me.reshape(b, -1), codes, max_cells, label_valid=(me > 0).reshape(b, -1))
     n_neighbors = (sum(hists) > 0).float().sum(dim=2)
 
     boundary = _boundary(lab).reshape(b, -1)
     seg = _flat(lab, max_cells)
     zeros = torch.zeros_like(seg)
     b_cnt, t_cnt = onehot_counts(
-        seg, [(zeros, boundary, 1), (zeros, boundary & touching.reshape(b, -1), 1)], max_cells
+        seg, [(zeros, boundary, 1), (zeros, boundary & touching.reshape(b, -1), 1)], max_cells,
+        label_valid=boundary,
     )
     pct = 100.0 * t_cnt[..., 0] / torch.clamp(b_cnt[..., 0], min=1.0)
     return {"NumberOfNeighbors": n_neighbors, "PercentTouching": pct}

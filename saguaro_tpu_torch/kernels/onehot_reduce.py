@@ -47,6 +47,7 @@ def onehot_counts(
     labels: torch.Tensor,
     codes: list[tuple[torch.Tensor, torch.Tensor, int]],
     max_cells: int,
+    label_valid: torch.Tensor | None = None,
 ) -> list[torch.Tensor]:
     """Fused per-label histograms.
 
@@ -54,15 +55,27 @@ def onehot_counts(
     n_codes). Returns [(B, max_cells, n_codes_i) f32, ...] counting the
     valid pixels per (label, code); labels outside [0, max_cells) and codes
     outside [0, n_codes) count nothing. K1 on CUDA (exact integer counts).
+
+    ``label_valid`` (B, N) bool, optional: only its pixels count, in every
+    plane (they keep their label, the others get -1). The callers pass a
+    mask that their planes' valid masks already imply (the objects'
+    inside, say), so their counts do not change
+    (``tests/test_torch_onehot_reduce.py`` holds each of them to that), and
+    K1 then reads no code of the background. The callers have that mask at
+    hand; working it out here from the codes reads every code once more.
     """
     sizes = tuple(n for _, _, n in codes)
     if any(n > 32768 for n in sizes):
-        # the reference stores codes as int16; keep its limit
+        # the reference stores codes as int16; so does the port
         raise ValueError(f"onehot_counts code spaces must fit int16 (<= 32768), got {sizes}")
+    # codes travel as int16, -1 where invalid or outside [0, n_codes)
     code_arr = torch.stack(
-        [torch.where(v, c.to(torch.int32), -1) for c, v, _ in codes], dim=1
+        [torch.where(v & (c >= 0) & (c < n), c, -1).to(torch.int16) for c, v, n in codes], dim=1
     ).contiguous()
-    labels = labels.to(torch.int32).contiguous()
+    labels = labels.to(torch.int32)
+    if label_valid is not None:
+        labels = torch.where(label_valid, labels, -1)
+    labels = labels.contiguous()
     if labels.is_cuda:
         g = sc.seg_counts(labels, code_arr, sizes, max_cells)
     else:

@@ -39,6 +39,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+from dataclasses import dataclass
 from pathlib import Path
 
 import torch
@@ -51,6 +52,9 @@ __all__ = [
     "build_kernels",
     "seg_counts",
     "counts_plain",
+    "counts_plan",
+    "CountsPlan",
+    "counts_kernel_info",
     "seg_take_t",
     "take_t_plain",
     "seg_sums",
@@ -85,7 +89,6 @@ _NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 _MAX_CH = 8  # SAG_MAX_CH in lane_sums.cu
-_A_SMEM = 96 * 1024  # SAG_LANES_SMEM in lane_sums.cu: pass A's shared accumulator
 
 # launches of each kernel since the last reset (one per wrapper launch)
 LAUNCHES: dict[str, int] = {
@@ -148,29 +151,32 @@ def build_kernels() -> Path:
     return lib
 
 
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# argument types of the library's C entry points (each returns an int status)
+SIGNATURES = {
+    "sag_counts": (_P, _P, _P, _P, _I, _LL) + (_I,) * 11 + (_P,),
+    "sag_counts_info": (_I, _I, _P),
+    "sag_take_t": (_P, _P, _P, _I, _LL, _I, _I, _P),
+    "sag_sums": (_P, _P, _P, _I, _LL, _I, _I, _P),
+    "sag_lanes_a": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    "sag_lanes_c": (_P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    "sag_lanes_e": (_P, _P, _P, _P, _P, _P, _I, _LL, _I, _I, _I, _P),
+    "sag_lanes_info": (_I, _I, _I, _P),
+    "sag_radial_sums": (_P, _P, _P, _P, _I, _LL, _I, _I, _I, _P),
+    "sag_edt_sweep": (_P, _P, _P, _I, _I, _I, _I, _P),
+    "sag_pick2": (_P, _P, _P, _P, _I, _LL, _I, _I, _P),
+    "sag_lanczos": (_P, _I, _P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+}
+
+
 def _lib() -> ctypes.CDLL:
     global _LIB
     if _LIB is None:
         lib = ctypes.CDLL(str(build_kernels()))
-        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        sigs = {
-            "sag_counts": (p, p, p, p, i, ll, i, i, i, p),
-            "sag_take_t": (p, p, p, i, ll, i, i, p),
-            "sag_sums": (p, p, p, i, ll, i, i, p),
-            "sag_lanes_a": (p, p, p, p, p, i, i, i, i, i, i, i, p),
-            "sag_lanes_c": (p, p, p, p, i, p, p, i, i, i, i, i, i, i, i, i, p),
-            "sag_lanes_e": (p, p, p, p, p, p, i, ll, i, i, i, p),
-            "sag_radial_sums": (p, p, p, p, i, ll, i, i, i, p),
-            "sag_edt_sweep": (p, p, p, i, i, i, i, p),
-            "sag_pick2": (p, p, p, p, i, ll, i, i, p),
-            "sag_lanczos": (p, i, p, p, p, p, i, p, p, p, i, i, i, i, i, p),
-        }
-        for name, args in sigs.items():
+        for name, args in SIGNATURES.items():
             fn = getattr(lib, name)
             fn.argtypes = list(args)
             fn.restype = ctypes.c_int
-        lib.sag_lanes_info.argtypes = [i, i, i, p]
-        lib.sag_lanes_info.restype = ctypes.c_int
         lib.sag_error_string.argtypes = [ctypes.c_int]
         lib.sag_error_string.restype = ctypes.c_char_p
         _LIB = lib
@@ -210,27 +216,204 @@ def _plan(sizes: tuple[int, ...]) -> tuple[list[int], int]:
     return offs, total
 
 
+# K1's launch plan (csrc/counts.cu). A CTA holds a slice of at most
+# K1_SLICE bytes of the (max_cells x columns) int32 table in shared memory;
+# a larger table is cut into row tiles (one CTA each, reading the same
+# pixels) or split over a thread-block cluster's distributed shared memory.
+K1_THREADS = 512                # SAG_COUNTS_THREADS in counts.cu
+K1_SLICE = 200 * 1024           # bytes of table a CTA holds
+K1_COPIES_BYTES = 32 * 1024     # per-warp copies of a small table: at most this much
+K1_SMEM_SM = 228 * 1024         # shared memory of an SM (1 KB of it reserved per CTA)
+K1_THREADS_SM = 1024            # resident threads of an SM the plan counts on
+K1_MAX_CLUSTER = 8              # the largest (portable) cluster Hopper runs
+K1_MIN_PIXELS = K1_THREADS * 8 * 4  # pixels a CTA takes at least (4 octets a thread)
+K1_SMS = 132                    # SMs of an H100 SXM
+K1_CLUSTER_RATIO = 4            # a cluster, not row tiles, past this many tiles a plane
+K1_WAVES = 4                    # waves of resident CTAs a call aims at
+
+
+@dataclass(frozen=True)
+class CountsPlan:
+    """K1's launch plan. ``groups`` of (q0, q1, col0, col1): the planes [q0,
+    q1) whose columns meet the group's columns [col0, col1) of the
+    (max_cells, sum(sizes)) table. In each group the label rows are cut in
+    ``rows``-row slices, one a CTA: over ``tiles`` CTAs that each read the
+    same pixels and count their own rows' keys (``cluster`` 1), or over the
+    ``cluster`` CTAs of a thread-block cluster that each read their own
+    pixels and add every key into its owner's shared memory (``tiles`` 1).
+    ``copies``: per-warp copies of a one-slice table; ``units``: pixel
+    units of each (group, site), a unit being a set of ``tiles`` CTAs or
+    one cluster; ``smem``: dynamic shared bytes a CTA."""
+
+    cluster: int
+    rows: int
+    tiles: int
+    groups: tuple[tuple[int, int, int, int], ...]
+    copies: int
+    units: int
+    smem: int
+
+    @property
+    def path(self) -> str:
+        if self.cluster > 1:
+            return "cluster"
+        return "shared" if self.tiles == 1 else "tiles"
+
+    @property
+    def ways(self) -> int:
+        """CTAs that split a group's rows."""
+        return max(self.cluster, self.tiles)
+
+    @property
+    def max_cols(self) -> int:
+        return max(c1 - c0 for _, _, c0, c1 in self.groups)
+
+
+def _column_groups(sizes, offs, cols_max):
+    """Column ranges of at most cols_max columns: whole planes packed in
+    order while they fit, a plane wider than cols_max cut into equal pieces
+    of its own."""
+    groups, start, end = [], None, None
+    for off, size in zip(offs, sizes):
+        if size > cols_max:
+            if start is not None:
+                groups.append((start, end))
+                start = None
+            pieces = -(-size // cols_max)
+            step = -(-size // pieces)
+            groups += [(c, min(c + step, off + size)) for c in range(off, off + size, step)]
+        elif start is not None and off + size - start <= cols_max:
+            end = off + size
+        else:
+            if start is not None:
+                groups.append((start, end))
+            start, end = off, off + size
+    if start is not None:
+        groups.append((start, end))
+    out = []
+    for c0, c1 in groups:
+        q0 = max(q for q, o in enumerate(offs) if o <= c0)
+        q1 = max(q for q, o in enumerate(offs) if o < c1) + 1
+        out.append((q0, q1, c0, c1))
+    return out
+
+
+def counts_plan(
+    max_cells: int, sizes: tuple[int, ...], batch: int, n: int, n_sms: int = K1_SMS
+) -> CountsPlan:
+    """K1's launch plan for a (batch, n) call with code planes ``sizes``: a
+    pure function of its arguments, fixed before the launch.
+
+    A table of at most K1_SLICE bytes: one CTA holds it, in per-warp copies
+    while they take at most K1_COPIES_BYTES. A larger one is cut into row
+    tiles, slices of the whole width (column groups where one row is wider
+    than a slice), one CTA each, unless the tiles would number more than
+    K1_CLUSTER_RATIO a plane: then the smallest cluster (up to
+    K1_MAX_CLUSTER CTAs) whose members' row slices hold the table, else
+    clusters of K1_MAX_CLUSTER over column groups (the measured choice on an
+    H100, PERF.md §6). ``units`` fills K1_WAVES waves of the card's resident
+    CTAs (``n_sms`` SMs) over the (group, site) pairs, with at least
+    K1_MIN_PIXELS pixels a CTA. Raises ValueError for a table that no plan
+    holds."""
+    sizes = tuple(int(s) for s in sizes)
+    if max_cells < 1 or not sizes or min(sizes) < 1:
+        raise ValueError(f"K1 needs max_cells >= 1 and code planes of >= 1 codes: {max_cells}, {sizes}")
+    offs, total = _plan(sizes)
+    if max_cells * total >= 2**31:
+        raise ValueError(f"a {max_cells} x {total} table does not fit int32 keys")
+    words = K1_SLICE // 4
+    copies, cluster, tiles = 1, 1, 1
+    whole = [(0, len(sizes), 0, total)]
+    # row tiles each read every label of their pixels, a cluster reads them
+    # once but sends most keys to another CTA: many tiles for few planes
+    # take the cluster
+    row_tiles = -(-max_cells // max(1, words // total))
+    if max_cells * total <= words:
+        rows, groups = max_cells, whole
+        while copies * 2 <= K1_THREADS // 32 and 4 * max_cells * total * copies * 2 <= K1_COPIES_BYTES:
+            copies *= 2
+    elif row_tiles <= K1_CLUSTER_RATIO * len(sizes):
+        groups = whole if total <= words else _column_groups(sizes, offs, words)
+        rows = min(max_cells, words // max(c1 - c0 for _, _, c0, c1 in groups))
+        tiles = -(-max_cells // rows)
+        rows = -(-max_cells // tiles)
+    else:
+        fits = [c for c in range(2, K1_MAX_CLUSTER + 1) if -(-max_cells // c) * total <= words]
+        cluster = fits[0] if fits else K1_MAX_CLUSTER
+        rows = -(-max_cells // cluster)
+        if rows > words:
+            raise ValueError(f"K1 cannot hold {max_cells} label rows: {rows} rows a CTA exceed "
+                             f"{K1_SLICE} B even at one column")
+        groups = whole if fits else _column_groups(sizes, offs, words // rows)
+    cols = max(c1 - c0 for _, _, c0, c1 in groups)
+    smem = 4 * rows * cols * copies + 8 * len(sizes)
+    per_sm = min(K1_THREADS_SM // K1_THREADS, K1_SMEM_SM // (smem + 1024))
+    if per_sm < 1:
+        raise ValueError(f"K1's plan needs {smem} B of shared memory a CTA")
+    ways = max(cluster, tiles)
+    per_unit = batch * len(groups) * ways
+    # a cluster's CTAs split a unit's pixels; the tiles of a unit each read all of them
+    by_size = -(-n // (cluster * K1_MIN_PIXELS))
+    units = max(1, min(K1_WAVES * per_sm * n_sms // per_unit, by_size))
+    if ways * units > 2**31 - 1 or len(groups) > 65535 or batch > 65535:
+        raise ValueError(f"K1's grid ({ways * units}, {len(groups)}, {batch}) is too large")
+    return CountsPlan(cluster, rows, tiles, tuple(groups), copies, units, smem)
+
+
+_PLAN_TENSORS: dict[tuple, torch.Tensor] = {}
+
+
+def _plan_tensor(sizes, plan: CountsPlan, device) -> torch.Tensor:
+    """The plan's device array, cached: plane offsets, plane sizes, then
+    (q0, q1, col0, col1) a group."""
+    key = (str(device), sizes, plan.groups)
+    t = _PLAN_TENSORS.get(key)
+    if t is None:
+        offs, _ = _plan(sizes)
+        flat = offs + list(sizes) + [v for g in plan.groups for v in g]
+        t = _PLAN_TENSORS[key] = torch.tensor(flat, dtype=torch.int32, device=device)
+    return t
+
+
 def seg_counts(
     labels: torch.Tensor, codes: torch.Tensor, sizes: tuple[int, ...], max_cells: int
 ) -> torch.Tensor:
-    """labels (B, N) int32 + codes (B, Q, N) int32 (code -1 = invalid pixel,
+    """labels (B, N) int32 + codes (B, Q, N) int16 (code -1 = invalid pixel,
     plane q's codes in [0, sizes[q])) -> (B, max_cells, sum(sizes)) f32 of
-    exact counts, plane q in columns [off_q, off_q + sizes[q])."""
+    exact counts, plane q in columns [off_q, off_q + sizes[q]). The launch
+    follows ``counts_plan`` for this card's SMs and raises when the card
+    cannot hold it."""
     _check(labels, "labels", torch.int32, 2)
-    _check(codes, "codes", torch.int32, 3)
+    _check(codes, "codes", torch.int16, 3)
     b, n = labels.shape
     q = codes.shape[1]
+    sizes = tuple(int(s) for s in sizes)
     if codes.shape != (b, q, n) or len(sizes) != q:
         raise ValueError(f"codes {tuple(codes.shape)} do not match labels {(b, n)} and sizes {sizes}")
-    offs, total = _plan(tuple(sizes))
-    plan = torch.tensor(offs + list(sizes), dtype=torch.int32, device=labels.device)
-    out = torch.zeros((b, max_cells, total), dtype=torch.int32, device=labels.device)
+    dev = labels.device
+    plan = counts_plan(max_cells, sizes, b, n, torch.cuda.get_device_properties(dev).multi_processor_count)
+    _, total = _plan(sizes)
+    out = torch.zeros((b, max_cells, total), dtype=torch.int32, device=dev)
     _launch(
-        "sag_counts", "seg_counts", labels.device,
-        labels.data_ptr(), codes.data_ptr(), plan.data_ptr(), out.data_ptr(),
-        b, n, q, max_cells, total,
+        "sag_counts", "seg_counts", dev,
+        labels.data_ptr(), codes.data_ptr(), _plan_tensor(sizes, plan, dev).data_ptr(),
+        out.data_ptr(), b, n, q, max_cells, total, len(plan.groups), plan.cluster, plan.rows,
+        plan.tiles, plan.copies, plan.units, plan.max_cols, plan.smem,
     )
     return out.float()
+
+
+def counts_kernel_info(plan: CountsPlan) -> dict[str, int]:
+    """Resources of K1's kernel under ``plan`` on the current card:
+    registers and local (spilled) bytes a thread, and how many fit at once:
+    CTAs a SM for a one-CTA plan, clusters on the card for a cluster
+    plan."""
+    info = (ctypes.c_int * 3)()
+    rc = _lib().sag_counts_info(plan.cluster, plan.smem, info)
+    if rc != 0:
+        raise RuntimeError(f"sag_counts_info failed: CUDA error {rc}")
+    fits = "clusters_resident" if plan.cluster > 1 else "ctas_per_sm"
+    return dict(zip(("registers", "local_bytes", fits), info))
 
 
 def counts_plain(
@@ -355,13 +538,13 @@ def table_cols_c(n_ch: int, with_moments: bool, with_zernike: bool, with_edge: b
 
 
 def lanes_kernel_info(pass_name: str, n_ch: int, flags: tuple[bool, bool, bool] = (False,) * 3):
-    """Resources of the pass C (flags = moments, zernike, edge) or pass E
-    kernel at ``n_ch`` channels on the current card: registers and local
-    (spilled) bytes a thread, dynamic shared bytes a block, and resident
-    blocks a SM."""
+    """Resources of the pass A (flags[2] = edge), pass C (flags = moments,
+    zernike, edge) or pass E kernel at ``n_ch`` channels on the current
+    card: registers and local (spilled) bytes a thread, dynamic shared
+    bytes a block, and resident blocks a SM."""
     info = (ctypes.c_int * 4)()
     code = 4 * flags[0] + 2 * flags[1] + flags[2]
-    rc = _lib().sag_lanes_info({"C": 1, "E": 2}[pass_name], code, n_ch, info)
+    rc = _lib().sag_lanes_info({"A": 0, "C": 1, "E": 2}[pass_name], code, n_ch, info)
     if rc != 0:
         raise RuntimeError(f"sag_lanes_info failed: CUDA error {rc}")
     return dict(zip(("registers", "local_bytes", "smem_bytes", "blocks_per_sm"), info))
@@ -395,9 +578,6 @@ def seg_lane_sums_a(
     weights, border (B, H, W) uint8 -> (B, max_cells, n_lanes_a) f32."""
     b, h, w, n_ch = _check_lane_inputs(labels, image, border, max_cells)
     _check(pweight, "pweight", torch.float32, 3)
-    if max_cells * 4 > _A_SMEM:
-        raise ValueError(f"max_cells={max_cells} exceeds pass A's shared accumulator: one lane "
-                         f"of max_cells f32 sums must fit {_A_SMEM} B (max_cells <= {_A_SMEM // 4})")
     nl = n_lanes_a(n_ch, with_edge)
     out = torch.zeros((b, max_cells, nl), dtype=torch.float32, device=labels.device)
     _launch(

@@ -124,7 +124,7 @@ def radius_features(
     d2i = torch.clamp(d2, max=float(cap)).to(torch.int32)
     c_code = torch.div(d2i, _FINE, rounding_mode="floor")
     f_code = d2i % _FINE
-    (coarse,) = onehot_counts(seg, [(c_code, inside_m, n_coarse)], max_cells)
+    (coarse,) = onehot_counts(seg, [(c_code, inside_m, n_coarse)], max_cells, label_valid=inside_m)
     cum = torch.cumsum(coarse, dim=2)
     # np.median ranks (1-indexed): lo = floor((n+1)/2), hi = floor(n/2)+1
     lo_rank = torch.floor((cnt + 1.0) / 2.0)
@@ -142,7 +142,8 @@ def radius_features(
     in_hi = inside_m & (c_code == bins_px[:, 1])
     in_mx = inside_m & (c_code == bins_px[:, 2])
     fine_lo, fine_hi, fine_mx = onehot_counts(
-        seg, [(f_code, in_lo, _FINE), (f_code, in_hi, _FINE), (f_code, in_mx, _FINE)], max_cells
+        seg, [(f_code, in_lo, _FINE), (f_code, in_hi, _FINE), (f_code, in_mx, _FINE)], max_cells,
+        label_valid=inside_m,
     )
     f_lo = _first_true(torch.cumsum(fine_lo, 2) >= (lo_rank - lo_before)[..., None], 2)
     f_hi = _first_true(torch.cumsum(fine_hi, 2) >= (hi_rank - hi_before)[..., None], 2)

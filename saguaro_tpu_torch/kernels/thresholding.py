@@ -36,7 +36,7 @@ def _hist(data: torch.Tensor, valid: torch.Tensor, nbins: int):
     hi = torch.where(vflat, flat, -big).amax(dim=1)
     span = torch.clamp(hi - lo, min=1e-12)
     q = torch.clamp((flat - lo[:, None]) / span[:, None] * nbins, 0, nbins - 1).to(torch.int32)
-    (hist,) = onehot_counts(q, [(torch.zeros_like(q), vflat, 1)], nbins)
+    (hist,) = onehot_counts(q, [(torch.zeros_like(q), vflat, 1)], nbins, label_valid=vflat)
     ar = torch.arange(nbins, dtype=torch.float32, device=data.device)
     centers = (ar + 0.5)[None, :] / nbins * span[:, None] + lo[:, None]
     return hist[..., 0], centers
@@ -237,7 +237,7 @@ def adaptive_threshold(
         bid32 = bid.to(torch.int32)
         per_px = mxu_take(torch.stack([vmin, span], dim=2), bid32, nb)
         q = torch.clamp((dflat - per_px[..., 0]) / per_px[..., 1] * blk_bins, 0, blk_bins - 1)
-        (hist,) = onehot_counts(bid32, [(q.to(torch.int32), vflat, blk_bins)], nb)
+        (hist,) = onehot_counts(bid32, [(q.to(torch.int32), vflat, blk_bins)], nb, label_valid=vflat)
         ar = torch.arange(blk_bins, dtype=torch.float32, device=dev)
         centers = (ar[None, None, :] + 0.5) / blk_bins * span[..., None] + vmin[..., None]
         hist2, centers2 = hist.reshape(b * nb, blk_bins), centers.reshape(b * nb, blk_bins)

@@ -11,6 +11,7 @@ file imports neither JAX nor the reference, so it runs on the card:
     python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py
 """
 
+import dataclasses
 import itertools
 
 import numpy as np
@@ -20,7 +21,12 @@ import torch
 from saguaro_tpu_torch.kernels import segment_cuda as sc
 from saguaro_tpu_torch.kernels.segment_reduce import perimeter_weight_image
 
-from .torch_data import adversarial_lane_args_c, adversarial_lane_args_e, blob_sites
+from .torch_data import (
+    adversarial_lane_args_a,
+    adversarial_lane_args_c,
+    adversarial_lane_args_e,
+    blob_sites,
+)
 
 
 @pytest.fixture
@@ -36,11 +42,105 @@ def cuda():
 def test_counts_kernel_exact(cuda):
     rng = np.random.default_rng(0)
     lab = torch.from_numpy(rng.integers(-1, 300, (3, 50000)).astype(np.int32)).to(cuda)
-    codes = torch.from_numpy(rng.integers(-1, 9, (3, 2, 50000)).astype(np.int32)).to(cuda)
+    codes = torch.from_numpy(rng.integers(-1, 9, (3, 2, 50000)).astype(np.int16)).to(cuda)
     got = sc.seg_counts(lab, codes, (8, 5), 256)
     torch.cuda.synchronize()
     want = sc.counts_plain(lab, codes, (8, 5), 256)
     assert torch.equal(got, want)
+
+
+def _counts_inputs(rng, b, n, mc, sizes):
+    """K1 inputs that stress every path: labels in runs, some outside [0,
+    mc); codes in runs, some outside [0, size), whole warps' worth (256
+    pixels) of invalid codes; with B > 1 site 0 puts every pixel in one bin
+    and the last site is empty (no valid label)."""
+    def runs(lo, hi, size):
+        vals = rng.integers(lo, hi, size // 5 + 1)
+        return np.repeat(vals, rng.integers(1, 10, vals.size))[:size].copy() if size else vals[:0]
+
+    lab = np.stack([np.resize(runs(-3, mc + 4, n), n) for _ in range(b)]).astype(np.int32)
+    codes = np.stack([np.stack([np.resize(runs(-1, s + 2, n), n) for s in sizes])
+                      for _ in range(b)]).astype(np.int16)
+    for start in rng.integers(0, max(n - 256, 1), 6):
+        codes[:, :, start : start + 256] = -1
+    if b > 1:
+        lab[0] = min(1, mc - 1)
+        codes[0] = 0
+        lab[-1] = rng.choice([-1, mc, mc + 5], n)
+    return lab, codes
+
+
+COUNTS_CASES = {
+    # name: (B, N, max_cells, sizes, the path and column groups the plan picks)
+    "otsu-copies": (3, 100000, 256, (1,), ("shared", 1)),
+    "shared-n-odd": (2, 50003, 512, (16,) * 5, ("shared", 1)),
+    "mc1": (2, 9999, 1, (7, 3), ("shared", 1)),
+    "tiles2": (2, 40000, 512, (130,), ("tiles", 1)),
+    "tiles3-values": (2, 40000, 256, (256, 256), ("tiles", 1)),
+    "tiles-texture": (2, 30000, 512, (136,) * 20, ("tiles", 1)),
+    "tiles-row-split": (2, 20000, 2, (30000, 30000), ("tiles", 2)),
+    "cluster6": (2, 30000, 512, (500,), ("cluster", 1)),
+    "cluster-groups": (2, 30000, 512, (512,) * 4, ("cluster", 4)),
+    "split-plane-b1": (1, 20000, 1024, (1024, 1024), ("cluster", 6)),
+    "int16-limit": (1, 5000, 2, (32768,), ("tiles", 1)),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(COUNTS_CASES))
+def test_counts_kernel_paths(cuda, case):
+    """K1 exactly against its plain form on each path of its plan, reached
+    through shapes where the plan picks it: one CTA with per-warp copies or
+    one table; row tiles, with column groups where a row is wider than a
+    slice; clusters of 6 and 8 CTAs; column groups, a plane cut over
+    groups, codes at the int16 limit."""
+    b, n, mc, sizes, path = COUNTS_CASES[case]
+    rng = np.random.default_rng(len(case))
+    lab, codes = _counts_inputs(rng, b, n, mc, sizes)
+    if case == "int16-limit":
+        lab[0, :100] = 0
+        codes[0, 0, :100] = 32767
+    plan = sc.counts_plan(mc, sizes, b, n, torch.cuda.get_device_properties(cuda).multi_processor_count)
+    assert (plan.path, len(plan.groups)) == path, plan
+    lab_t, codes_t = torch.from_numpy(lab).to(cuda), torch.from_numpy(codes).to(cuda)
+    got = sc.seg_counts(lab_t, codes_t, sizes, mc)
+    torch.cuda.synchronize()
+    assert torch.equal(got, sc.counts_plain(lab_t, codes_t, sizes, mc)), plan
+    if case == "int16-limit":
+        assert got[0, 0, 32767] >= 100
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sizes", [(130,), (2048,)])
+def test_counts_kernel_refuses_a_plan_the_card_cannot_hold(cuda, monkeypatch, sizes):
+    """A plan that leaves label rows without a CTA (row tiles at (130,), a
+    cluster at (2048,)) is refused by the library, and the wrapper raises."""
+    lab = torch.zeros((1, 64), dtype=torch.int32, device=cuda)
+    codes = torch.zeros((1, 1, 64), dtype=torch.int16, device=cuda)
+    plan = sc.counts_plan(512, sizes, 1, 64)
+    assert plan.ways > 1
+    bad = dataclasses.replace(plan, rows=plan.rows // 2)
+    monkeypatch.setattr(sc, "counts_plan", lambda *args: bad)
+    with pytest.raises(RuntimeError, match="sag_counts failed"):
+        sc.seg_counts(lab, codes, sizes, 512)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_edge", [False, True])
+@pytest.mark.parametrize("max_cells", [16, 512, 1024])
+@pytest.mark.parametrize("n_ch", [1, 2, 5, 8])
+def test_lane_sums_a_kernel_adversarial(cuda, n_ch, max_cells, with_edge):
+    """Pass A's register runs on the adversarial sites: runs across strip,
+    step and row ends, single pixels, overflow ids, an all-background site
+    and a ragged last span; areas exactly."""
+    host = adversarial_lane_args_a(n_ch, max_cells, with_edge, seed=n_ch + max_cells)
+    args = [torch.from_numpy(a).to(cuda) for a in host[:4]] + list(host[4:])
+    got = sc.seg_lane_sums_a(*args)
+    torch.cuda.synchronize()
+    assert got.shape == (3, max_cells, sc.n_lanes_a(n_ch, with_edge))
+    want = sc.lane_sums_a_plain(*args, dtype=torch.float64)
+    _hold_lane_sums(got, want, sc.lane_sums_a_plain(*args, magnitude=True, dtype=torch.float64))
+    assert torch.equal(got[..., 0].double(), want[..., 0])
 
 
 @pytest.mark.cuda
@@ -104,7 +204,7 @@ def test_counts_kernel_exact_at_glcm_planes(cuda):
     directions) in one call: more planes than one block stages."""
     rng = np.random.default_rng(6)
     lab = torch.from_numpy(rng.integers(-1, 520, (2, 60000)).astype(np.int32)).to(cuda)
-    codes = torch.from_numpy(rng.integers(-1, 137, (2, 20, 60000)).astype(np.int32)).to(cuda)
+    codes = torch.from_numpy(rng.integers(-1, 137, (2, 20, 60000)).astype(np.int16)).to(cuda)
     sizes = (136,) * 20
     got = sc.seg_counts(lab, codes, sizes, 512)
     torch.cuda.synchronize()

@@ -103,3 +103,98 @@ def test_segment_sums_within_bf16_split_tolerance(data):
         np.add.at(abs_sum, lab[ok], np.abs(values[b][ok]))
         assert np.all(np.abs(got[b] - want) <= 2.0**-15 * abs_sum + 1e-6)
         np.testing.assert_array_equal(got[b][:, 3], want[:, 3])
+
+
+def test_onehot_counts_int16_codes_at_the_limit(monkeypatch):
+    """Codes travel to K1 as int16: a 32768-code plane counts its top code
+    32767 and drops codes outside [0, 32768) (32768, 40000, negative ones),
+    exactly as the reference does."""
+    rng = np.random.default_rng(4)
+    labels = rng.integers(-1, 4, (B, N)).astype(np.int32)
+    code = rng.integers(32600, 32768, (B, N))
+    code[:, :50] = 32767
+    code[:, 50:60] = 32768
+    code[:, 60:70] = 40000
+    code[:, 70:80] = -5
+    valid = rng.random((B, N)) > 0.1
+    codes = [(code, valid, 32768), (code % 7, valid, 5)]
+    seen = []
+    plain = port.sc.counts_plain
+
+    def spy(lab, code_arr, sizes, mc):
+        seen.append(code_arr.dtype)
+        return plain(lab, code_arr, sizes, mc)
+
+    monkeypatch.setattr(port.sc, "counts_plain", spy)
+    got = port.onehot_counts(
+        torch.from_numpy(labels), [(torch.from_numpy(c), torch.from_numpy(v), n) for c, v, n in codes], 4
+    )
+    assert seen == [torch.int16]
+    assert float(got[0][..., 32767].sum()) > 0
+    for b in range(B):
+        want = ref.onehot_counts(
+            jnp.asarray(labels[b]), [(jnp.asarray(c[b]), jnp.asarray(v[b]), n) for c, v, n in codes], 4
+        )
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g[b].numpy(), np.asarray(w))
+
+
+def test_onehot_counts_label_valid_keeps_only_its_pixels(data):
+    """``label_valid`` counts only its pixels, in every plane: the
+    reference's counts with each plane's valid mask narrowed to it."""
+    rng, labels, codes = data
+    keep = rng.random((B, N)) > 0.3
+    got = port.onehot_counts(
+        torch.from_numpy(labels),
+        [(torch.from_numpy(c), torch.from_numpy(v), n) for c, v, n in codes],
+        MC,
+        label_valid=torch.from_numpy(keep),
+    )
+    for b in range(B):
+        want = ref.onehot_counts(
+            jnp.asarray(labels[b]),
+            [(jnp.asarray(c[b]), jnp.asarray(v[b] & keep[b]), n) for c, v, n in codes],
+            MC,
+        )
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g[b].numpy(), np.asarray(w))
+
+
+@pytest.mark.parametrize("scope", ["global", "adaptive"])
+def test_callers_label_masks_change_no_count(monkeypatch, scope):
+    """Every caller of ``onehot_counts`` on the measurement path passes a
+    ``label_valid`` that its planes' valid masks imply: its counts with the
+    mask equal those without. Runs ``measure_site_batch`` at the default
+    FeatureConfig (adaptive: the secondary threshold's adaptive scope) on
+    small seeded sites, with every call checked."""
+    import dataclasses
+    import sys
+
+    from saguaro_tpu_torch.kernels import colocalization, glcm, objects_extra, shape_extra, thresholding
+    from saguaro_tpu_torch.pipeline.features import FeatureConfig, measure_site_batch
+
+    from .torch_data import blob_sites
+
+    seen = set()
+
+    def checked(labels, codes, max_cells, label_valid=None):
+        f = sys._getframe(1)
+        assert label_valid is not None, f"{f.f_code.co_name}:{f.f_lineno} passes no label_valid"
+        got = port.onehot_counts(labels, codes, max_cells, label_valid)
+        for g, w in zip(got, port.onehot_counts(labels, codes, max_cells)):
+            assert torch.equal(g, w), f"{f.f_code.co_name}:{f.f_lineno} drops counts"
+        seen.add(f.f_code.co_name)
+        return got
+
+    for mod in (colocalization, glcm, objects_extra, shape_extra, thresholding):
+        monkeypatch.setattr(mod, "onehot_counts", checked)
+    img, lab = blob_sites(n_sites=2, h=48, w=52, n_ch=3, n_cells=7, seed=5)
+    cfg = FeatureConfig(channels=("DNA", "ER", "Mito"), max_cells=16)
+    if scope == "adaptive":
+        cfg = dataclasses.replace(cfg, secondary_threshold_scope="adaptive",
+                                  secondary_adaptive_window=12)
+    measure_site_batch(img, lab, cfg, device="cpu")
+    want = {"radius_features", "object_glcm_multichannel", "_two_level_ranks",
+            "neighbor_features", "_value_count_tables", "_joint_tables"}
+    want.add("_hist" if scope == "global" else "adaptive_threshold")
+    assert want <= seen, want - seen

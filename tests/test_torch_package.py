@@ -155,7 +155,7 @@ def _cpu_wrapper_calls():
     bnd = torch.zeros((1, 4, 2), dtype=torch.uint8)
     img3 = torch.zeros((1, 8, 2))
     return {
-        "seg_counts": lambda: sc.seg_counts(lab, torch.zeros((1, 1, 8), dtype=torch.int32), (1,), 4),
+        "seg_counts": lambda: sc.seg_counts(lab, torch.zeros((1, 1, 8), dtype=torch.int16), (1,), 4),
         "seg_take_t": lambda: sc.seg_take_t(torch.zeros((1, 4, 2)), lab, 4),
         "seg_sums": lambda: sc.seg_sums(lab, torch.zeros((1, 8, 1)), 4),
         "seg_lane_sums_a": lambda: sc.seg_lane_sums_a(lab3, img, torch.zeros((1, 4, 2)), bnd, 4, True),

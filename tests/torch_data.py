@@ -76,7 +76,7 @@ def _label_runs(rng, n: int, max_cells: int) -> np.ndarray:
 
 def adversarial_lane_sites(n_ch: int, max_cells: int, seed: int = 0, h: int = 61, w: int = 211):
     """(images (3, h, w, n_ch) f32 integer grey levels, labels (3, h, w)
-    int32) that stress the run-accumulating lane kernels (passes C and E).
+    int32) that stress the run-accumulating lane kernels (passes A, C and E).
     Site 0: one object over 44 full rows, 9284 pixels in raster order, wider
     than a strip (64 pixels) and than a block's span (8192), its runs
     crossing row ends; its lower rows sprinkled with single pixels of other
@@ -129,6 +129,18 @@ def adversarial_lane_args_c(n_ch, max_cells, moments, zernike, edge, zcoef, seed
     assert table.shape[2] == table_cols_c(n_ch, moments, zernike, edge)
     return (labels, images, border, table, np.asarray(zcoef, np.float32), max_cells,
             moments, zernike, edge)
+
+
+def adversarial_lane_args_a(n_ch, max_cells, with_edge, seed=0):
+    """Pass A's arguments (labels, image, pweight, border, max_cells,
+    with_edge) as numpy arrays on ``adversarial_lane_sites``: border flags
+    on a third of the labelled pixels, perimeter weights of 0, 1/2, 1 and
+    sqrt(2)/2 as the perimeter's corner weights give them."""
+    images, labels = adversarial_lane_sites(n_ch, max_cells, seed)
+    rng = np.random.default_rng(seed + 3)
+    border = ((rng.random(labels.shape) < 0.33) & (labels > 0)).astype(np.uint8)
+    pweight = rng.choice(np.array([0.0, 0.5, 1.0, np.sqrt(0.5)], np.float32), labels.shape)
+    return labels, images, pweight * border, border, max_cells, with_edge
 
 
 def adversarial_lane_args_e(n_ch, max_cells, seed=0):

@@ -1,8 +1,9 @@
-"""Times text-patched variants of ``csrc/lane_sums.cu`` (the K4 pass C and
-pass E run kernels) at chip_smoke's inputs on one NVIDIA GPU, to see what
-limits them: 8 sites of 1080 x 1080 x 5 channels, max_cells 512, pass C
-with every family on (and each (moments, zernike, edge) combination), pass
-E on the nuclei with thresholds at 15 % of each label's channel maximum.
+"""Times text-patched variants of ``csrc/lane_sums.cu`` (the K4 pass A, C
+and E run kernels) at chip_smoke's inputs on one NVIDIA GPU, to see what
+limits them: 8 sites of 1080 x 1080 x 5 channels, max_cells 512, pass A
+with edge lanes, pass C with every family on (and each (moments, zernike,
+edge) combination), pass E on the nuclei with thresholds at 15 % of each
+label's channel maximum.
 
     python3 tools/k4_variants.py [variant ...]
 
@@ -51,6 +52,8 @@ VARIANTS = {
               ("#define SAG_STEPS 16 ", "#define SAG_STEPS 8 ")],
     "e_pairs5": [("#define SAG_E_PAIRS 10 ", "#define SAG_E_PAIRS 5 ")],
     "e_blocks4": [(E_BOUNDS, E_BOUNDS.replace("SAG_RUN_MIN_BLOCKS", "4"))],
+    # pass A without its perimeter-weight read in the walk (timing only)
+    "a_nopw": [("    acc[4] += __ldg(pweight + i);\n", "")],
 }
 
 
@@ -80,9 +83,10 @@ def build(names: list[str]) -> dict[str, ctypes.CDLL]:
         if proc.returncode != 0:
             raise RuntimeError(f"variant {name} does not build:\n{log[-3000:]}")
         lib = ctypes.CDLL(str(BUILD / name / "lib.so"))
+        lib.sag_lanes_a.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, p]
         lib.sag_lanes_c.argtypes = [p, p, p, p, i, p, p, i, i, i, i, i, i, i, i, i, p]
         lib.sag_lanes_e.argtypes = [p, p, p, p, p, p, i, ll, i, i, i, p]
-        lib.sag_lanes_c.restype = lib.sag_lanes_e.restype = ctypes.c_int
+        lib.sag_lanes_a.restype = lib.sag_lanes_c.restype = lib.sag_lanes_e.restype = ctypes.c_int
         lib.sag_error_string.argtypes = [ctypes.c_int]
         lib.sag_error_string.restype = ctypes.c_char_p
         libs[name] = lib
@@ -129,7 +133,7 @@ def inputs(dev):
                        torch.full((len(pairs),), 1 / 3000.0, device=dev)])
     args_e = (flat, vr, ranks, (0.15 * vmax).contiguous(), thr[None].expand(b, 3, len(pairs)).contiguous(),
               cs.MAX_CELLS)
-    return args_c, args_e
+    return (lab, img, pw.contiguous(), bnd, cs.MAX_CELLS, True), args_c, args_e
 
 
 def main() -> int:
@@ -138,11 +142,12 @@ def main() -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip(), flush=True)
     libs = build(names)
-    args_c, args_e = inputs(dev)
+    args_a, args_c, args_e = inputs(dev)
     full = args_c(True, True, True)
     for name in names + names[:1]:
         sc._LIB = libs[name]
-        rec = {"variant": name, "C_ms": cs.time_ms(lambda: sc.seg_lane_sums_c(*full), 20),
+        rec = {"variant": name, "A_ms": cs.time_ms(lambda: sc.seg_lane_sums_a(*args_a), 20),
+               "C_ms": cs.time_ms(lambda: sc.seg_lane_sums_c(*full), 20),
                "E_ms": cs.time_ms(lambda: sc.seg_lane_sums_e(*args_e), 20)}
         for flags in itertools.product([False, True], repeat=3):
             a = args_c(*flags)
