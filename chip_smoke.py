@@ -3,31 +3,37 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels (K1-K7, ``saguaro_tpu_torch/csrc``) from the
-checkout, holds each one against its plain PyTorch twin at the shapes its
-path gives it and times both: K1-K6 at the feature-extraction path's (8
-sites of 1080 x 1080, 5 channels, max_cells=512; K1 at each of its call
-sites there, with the inputs one measurement gives it), K7 at the pixel path's
-(16 raw 2160 x 2160 uint16 fields re-binned to 1080 x 1080, plus an
-upsampling and an odd non-square case). Then it drives both paths end to
-end through the user-facing entry points. Feature extraction: the
-full-width CPnet segmentation engine on 8 synthetic uint16 sites, mask
-recovery on ground-truth flows (untrained weights find no cells),
-``measure_site_batch`` at the reference's default FeatureConfig (every
-family on), and ``run_feature_extraction_job`` on a 2-site plate. Pixel
-stages: ``run_max_projection``, ``run_rebin``, the ``estimate_illum`` CLI
-and ``run_illumination_qc`` on a temporary plate of raw 2160 x 2160 uint16
-z-stacks (4 fields x 5 channels x 3 planes). It fails unless each path
-launched every kernel it runs (K1's launches are logged by call site,
-with each site's shape), and prints one JSON line of per-kernel numbers, the card's
-name and power limit, and last ``{"ok": true, "device": {...}}``. Before
-that it logs the build's seconds, the compiler's registers, spills and
-shared memory of K1 and of every K4 run kernel (it fails if one spills),
-their resident blocks a SM and K1's plan at each shape, and it holds K4
-passes A, C and E against their plain forms on small adversarial sites
-(``tests/torch_data.adversarial_lane_sites``): every lane group, 1, 5 and 8
-channels (E: 2, 5 and 8), max_cells 16 and 1024. Without
-a CUDA device, or without the package beside it, it exits non-zero and
-prints no result.
+checkout, one ``nvcc`` a source in parallel, holds each one against its
+plain PyTorch twin at the shapes its path gives it and times both: K1-K6
+at the feature-extraction path's (8 sites of 1080 x 1080, 5 channels,
+max_cells=512; K1 and K3 at each of their call sites there, with the
+inputs one measurement gives them), K7 at the pixel path's (16 raw 2160 x
+2160 uint16 fields re-binned to 1080 x 1080, plus f32 input, an
+upsampling and an odd non-square case). K3 and K7 are also timed bare:
+their C calls alone, back to back, with plans, tables and outputs made
+beforehand. Then it drives the paths end to end through the user-facing
+entry points. Feature extraction: the full-width CPnet segmentation
+engine on 8 synthetic uint16 sites, mask recovery on ground-truth flows
+(untrained weights find no cells), ``measure_site_batch`` at the
+reference's default FeatureConfig (every family on), and
+``run_feature_extraction_job`` on a 2-site plate. Single site:
+``SegmentEmbedEngine.segment`` on one site, and Euler ``compute_masks`` on
+a site's ground-truth flows, held against the ground truth and against
+the CPU. Pixel stages: ``run_max_projection``, ``run_rebin``, the
+``estimate_illum`` CLI and ``run_illumination_qc`` on a temporary plate of
+raw 2160 x 2160 uint16 z-stacks (4 fields x 5 channels x 3 planes). It
+fails unless each path launched every kernel it runs (K1's and K3's
+launches are logged by call site, with each site's shape), and prints one
+JSON line of per-kernel numbers, the card's name and power limit, and
+last ``{"ok": true, "device": {...}}``. Before that it logs the build's
+seconds, the compiler's registers, spills and shared memory of K1, K3, K7
+and every K4 run kernel (it fails if one spills), their resident blocks a
+SM and the K1, K3 and K7 plans at each shape, and it holds K4 passes A, C
+and E against their plain forms on small adversarial sites
+(``tests/torch_data.adversarial_lane_sites``): every lane group, 1, 5 and
+8 channels (E: 2, 5 and 8), max_cells 16 and 1024. Without a CUDA device,
+or without the package beside it, it exits non-zero and prints no
+result.
 
     python3 chip_smoke.py --profile
 
@@ -125,6 +131,29 @@ def time_ms(fn, reps: int) -> float:
     return float(np.median(times))
 
 
+def time_launches_ms(fn, launches: int = 10, reps: int = 20) -> float:
+    """Median over ``reps`` CUDA-event timings of ``launches`` back-to-back
+    calls, divided by ``launches``, after two warm-up calls: a launch's
+    device time when its host cost is shorter than the kernel (the bare C
+    call, without the wrapper's checks and allocation)."""
+    import torch
+
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(launches):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / launches)
+    return float(np.median(times))
+
+
 def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
     """Least time on the card: the larger of bytes over the memory rate and
     operations over the f32 rate (ms), and which one bounds."""
@@ -183,23 +212,29 @@ def demangle(names: list[str]) -> list[str]:
         return names
 
 
-def log_k4_resources(build_log: str) -> None:
-    """Logs the compiler's report of K1's kernels and of every K4 run
-    kernel instantiation (passes A, C and E) and the run kernels' resident
-    blocks a SM at 5 and 8 channels; fails if any of them spills."""
+def log_resources(build_log: str) -> None:
+    """Logs the compiler's report of K1's, K3's and K7's kernels and of
+    every K4 run kernel instantiation (passes A, C and E), K3's resident
+    CTAs a SM at the main path's tables and the K4 run kernels' at 5 and 8
+    channels (K7's come with its plans); fails if any of them spills."""
     from saguaro_tpu_torch.kernels import segment_cuda as sc
 
-    k4 = [k for k in ptxas_report(build_log) if "sag_lanes" in k["name"] or "sag_counts" in k["name"]]
-    if not all(any(f"sag_{p}_kernel" in k["name"] for k in k4) for p in ("lanes_a", "lanes_c", "counts")):
-        raise AssertionError("the build log has no ptxas report of the K1 or K4 A/C kernels")
+    names = ("sag_lanes", "sag_counts", "sag_sums", "sag_lanczos")
+    rep = [k for k in ptxas_report(build_log) if any(n in k["name"] for n in names)]
+    kinds = ("lanes_a", "lanes_c", "counts", "sums", "lanczos")
+    if not all(any(f"sag_{p}_kernel" in k["name"] for k in rep) for p in kinds):
+        raise AssertionError("the build log has no ptxas report of the K1, K3, K4 A/C or K7 kernels")
     spilled = []
-    for k, name in zip(k4, demangle([k["name"] for k in k4])):
+    for k, name in zip(rep, demangle([k["name"] for k in rep])):
         log(f"ptxas {name}: {k['registers']} registers, {k['spill_stores']} B spill stores, "
             f"{k['spill_loads']} B spill loads, {k['stack']} B stack, {k['smem']} B static smem")
         if k["spill_stores"] + k["spill_loads"] > 0:
             spilled.append(name)
     if spilled:
-        raise AssertionError(f"K1 or K4 pass A/C/E kernels spill registers: {spilled}")
+        raise AssertionError(f"K1, K3, K4 pass A/C/E or K7 kernels spill registers: {spilled}")
+    for width in (1, 2):
+        log(f"K3 width {width}, max_cells {MAX_CELLS}: "
+            + json.dumps(sc.sums_kernel_info(width, MAX_CELLS)))
     for n_ch in (5, 8):
         for edge in (False, True):
             log(f"K4 A edge={edge} n_ch={n_ch}: "
@@ -267,8 +302,9 @@ def check_kernels(images, labels, dev):
     import torch
 
     from saguaro_tpu_torch.kernels import segment_cuda as sc
-    from saguaro_tpu_torch.kernels.segment_reduce import euler_streams, perimeter_weight_image
+    from saguaro_tpu_torch.kernels.segment_reduce import perimeter_weight_image
     from saguaro_tpu_torch.kernels.zernike import _radial_coeffs
+    from saguaro_tpu_torch.pipeline.features import measure_site_batch
 
     b, h, w, n_ch = images.shape
     n = h * w
@@ -277,7 +313,7 @@ def check_kernels(images, labels, dev):
     out, counters = {}, {}
 
     def entry(name, source, replaces, err, fn, plain, n_bytes, n_ops, library=None, reps=10,
-              counter=None, site=None):
+              counter=None, site=None, bare=None):
         counters[name] = (counter or name) if site is None else (counter, site)
         t_b, by = bound(n_bytes, n_ops)
         out[name] = {
@@ -288,11 +324,18 @@ def check_kernels(images, labels, dev):
             "library_ms": None if library is None else time_ms(library, reps),
         }
         e = out[name]
-        log(f"{name}: err {e['max_abs_err']:.3g} kernel {e['ms']:.3f} ms plain {e['plain_ms']:.3f} ms "
-            f"bound {e['bound_ms']:.3f} ms ({by}) library {e['library_ms']}")
+        if bare is not None:  # the C call alone, launches back to back
+            e["bare_ms"] = time_launches_ms(bare)
+        log(f"{name}: err {e['max_abs_err']:.3g} kernel {e['ms']:.3f} ms (bare {e.get('bare_ms')}) "
+            f"plain {e['plain_ms']:.3f} ms bound {e['bound_ms']:.3f} ms ({by}) "
+            f"library {e['library_ms']}")
 
-    # K1 at every shape the measurement gives it
-    check_counts_shapes(images, labels, dev, entry)
+    # K1 and K3 at every shape the measurement gives them
+    with K1Sites(keep=True) as k1_rec, K3Sites(keep=True) as k3_rec:
+        measure_site_batch(images, labels, feature_config(), device=dev)
+    torch.cuda.synchronize()
+    check_counts_shapes(k1_rec, dev, entry)
+    del k1_rec
 
     # K2: centroid + channel-max table gather, with empty-label sentinels
     flat = lab.reshape(b, n)
@@ -314,21 +357,9 @@ def check_kernels(images, labels, dev):
           n_bytes=4.0 * b * (MAX_CELLS * k + n + k * n), n_ops=0.0,
           library=lambda: tab[site_idx, seg])
 
-    # K3: the Euler-number corner streams
-    e_lab, e_val = euler_streams(lab, MAX_CELLS)
-    got = sc.seg_sums(e_lab, e_val, MAX_CELLS)
-    want = sc.sums_plain(e_lab, e_val, MAX_CELLS)
-    torch.cuda.synchronize()
-    if not torch.equal(got, want):  # small integers: exact in any order
-        raise AssertionError("K3 Euler sums differ from the plain form")
-    m = e_lab.shape[1]
-    flat_idx = (e_lab.long() + torch.arange(b, device=dev)[:, None] * MAX_CELLS).reshape(-1)
-    flat_val = e_val.reshape(-1, 1)
-    acc = torch.zeros((b * MAX_CELLS, 1), device=dev)
-    entry("seg_sums", "saguaro_tpu_torch/csrc/sums.cu", f"{PALLAS}:460", 0.0,
-          lambda: sc.seg_sums(e_lab, e_val, MAX_CELLS), lambda: sc.sums_plain(e_lab, e_val, MAX_CELLS),
-          n_bytes=8.0 * b * m + 4.0 * b * MAX_CELLS, n_ops=float(b * m),
-          library=lambda: acc.index_add_(0, flat_idx, flat_val))
+    # K3 at both of its call sites
+    check_sums_shapes(k3_rec, dev, entry)
+    del k3_rec
 
     # K4: pass A and pass C lane scans over the nuclei
     pw, border = perimeter_weight_image(lab)
@@ -565,11 +596,12 @@ class K1Sites:
         return out
 
 
-def check_counts_shapes(images, labels, dev, entry):
-    """K1 at every shape the main path gives it: one ``measure_site_batch``
-    at the default FeatureConfig with each call site's first inputs kept,
-    then each site's call held exactly against the plain form and timed
-    beside one ``torch.bincount`` over every plane's keys. The bound counts
+def check_counts_shapes(rec, dev, entry):
+    """K1 at every shape the main path gives it: each call site's first
+    inputs kept from one ``measure_site_batch`` at the default
+    FeatureConfig (``rec``, a K1Sites), each site's call held exactly
+    against the plain form and timed beside one ``torch.bincount`` over
+    every plane's keys. The bound counts
     what this run's inputs need: every label, the codes of the pixels whose
     label lies in [0, max_cells) (``onehot_counts`` gives the pixels outside
     its caller's ``label_valid`` label -1), the table written once, and one
@@ -579,11 +611,7 @@ def check_counts_shapes(images, labels, dev, entry):
     import torch
 
     from saguaro_tpu_torch.kernels import segment_cuda as sc
-    from saguaro_tpu_torch.pipeline.features import measure_site_batch
 
-    with K1Sites(keep=True) as rec:
-        measure_site_batch(images, labels, feature_config(), device=dev)
-    torch.cuda.synchronize()
     log(f"K1: {sum(rec.calls.values())} launches a batch at {len(rec.calls)} call sites")
     names = rec.names()
     for key, (lab, codes) in rec.inputs.items():
@@ -621,6 +649,109 @@ def check_counts_shapes(images, labels, dev, entry):
         del keys, keep
 
 
+# K3's call sites on the main path (the caller of segment_matmul_sums) and
+# the names of their rows
+K3_SITES = {"euler_numbers": "seg_sums[euler]", "radius_features": "seg_sums[radius]"}
+
+
+class K3Sites:
+    """Wraps ``seg_sums`` while active: tallies K3's launches by call site
+    (the function that called ``segment_matmul_sums``) and, with ``keep``,
+    keeps each site's first inputs."""
+
+    def __init__(self, keep: bool):
+        from saguaro_tpu_torch.kernels import segment_cuda as sc
+
+        self.sc, self.keep, self.calls, self.inputs = sc, keep, {}, {}
+
+    def __enter__(self):
+        real = self.real = self.sc.seg_sums
+
+        def counted(labels, values, max_cells):
+            f = sys._getframe(1)
+            while f.f_code.co_name != "segment_matmul_sums":
+                f = f.f_back
+            site = f.f_back.f_code.co_name
+            self.calls[site] = self.calls.get(site, 0) + 1
+            if self.keep and site not in self.inputs:
+                self.inputs[site] = (labels, values, max_cells)
+            return real(labels, values, max_cells)
+
+        self.sc.seg_sums = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.sc.seg_sums = self.real
+
+
+def sums_bare(labels, values, max_cells):
+    """K3's launches as the C calls alone, into one output made beforehand
+    (timing only: the sums pile up over the calls)."""
+    import torch
+
+    from saguaro_tpu_torch.kernels import segment_cuda as sc
+
+    dev = labels.device
+    b, n = labels.shape
+    k = values.shape[2]
+    plan = sc.sums_card_plan(b, n, k, max_cells, dev)
+    out = torch.zeros((b, max_cells, k), dtype=torch.float32, device=dev)
+    launches = sc.sums_launches(labels, values, out, plan)
+    fn = sc._lib().sag_sums
+
+    def call():
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        for args, _ in launches:
+            if fn(*args, stream) != 0:
+                raise RuntimeError("sag_sums failed")
+
+    log(f"K3 plan at {(b, n, k)}, max_cells {max_cells}: {plan}")
+    return call
+
+
+def check_sums_shapes(rec, dev, entry):
+    """K3 at both of its call sites on the main path, with the inputs one
+    ``measure_site_batch`` at the default FeatureConfig gives it (``rec``, a
+    K3Sites): the Euler corner streams (small integers) held exactly, the
+    radius sums to SUM_RTOL of each label's sum of |value| (the plain form
+    in f64), each timed through the wrapper and bare, beside one
+    ``index_add_``. The bound: 4 B of label and 4 B a value lane a pixel,
+    the table written once, one add a value."""
+    import torch
+
+    from saguaro_tpu_torch.kernels import segment_cuda as sc
+
+    if set(rec.inputs) != set(K3_SITES):
+        raise AssertionError(f"K3's call sites on the main path: {sorted(rec.inputs)}")
+    for site, name in K3_SITES.items():
+        lab, val, mc = rec.inputs[site]
+        b, n, k = val.shape
+        got = sc.seg_sums(lab, val, mc)
+        want = sc.sums_plain(lab, val, mc, dtype=torch.float64)
+        torch.cuda.synchronize()
+        if site == "euler_numbers":
+            if not torch.equal(got.double(), want):  # small integers: exact in any order
+                raise AssertionError("K3 Euler sums differ from the plain form")
+            err = 0.0
+        else:
+            err = hold_sums(f"K3 {site}", got, want,
+                            sc.sums_plain(lab, val.abs(), mc, dtype=torch.float64))
+        nz = float((val != 0).any(dim=2).sum())
+        log(f"{name}: {rec.calls[site]} launches a batch, {(b, n, k)}, max_cells {mc}, "
+            f"{nz / (b * n):.4f} of the pixels with a non-zero value")
+        flat_idx = torch.where((lab >= 0) & (lab < mc),
+                               lab.long() + torch.arange(b, device=dev)[:, None] * mc,
+                               b * mc).reshape(-1)
+        flat_val = val.reshape(-1, k)
+        acc = torch.zeros((b * mc + 1, k), device=dev)
+        entry(name, "saguaro_tpu_torch/csrc/sums.cu", f"{PALLAS}:460", err,
+              lambda: sc.seg_sums(lab, val, mc), lambda: sc.sums_plain(lab, val, mc),
+              n_bytes=(4.0 + 4.0 * k) * b * n + 4.0 * b * mc * k, n_ops=float(b * n * k),
+              library=lambda: acc.index_add_(0, flat_idx, flat_val), counter="seg_sums",
+              site=site, bare=sums_bare(lab, val, mc))
+        del got, want, flat_idx, flat_val, acc
+
+
 def hold_resample(name, imgs, out_shape):
     """K7 on ``imgs`` against its plain form: the f32 sums to SUM_RTOL of
     each output's sum of |w * x| (the plain form in f64), and for integer
@@ -651,11 +782,39 @@ def hold_resample(name, imgs, out_shape):
     return diff
 
 
+def lanczos_bare(imgs, out_shape):
+    """K7's launch as the C call alone, with the band tables, the plan and
+    the output made beforehand."""
+    import torch
+
+    from saguaro_tpu_torch.kernels import resample as rs
+    from saguaro_tpu_torch.kernels import resample_cuda as rc
+    from saguaro_tpu_torch.kernels import segment_cuda as sc
+
+    dev = imgs.device
+    (b, in_h, in_w), (h, w) = imgs.shape, out_shape
+    plan = rs._card_plan(in_h, in_w, h, w, b, imgs.dtype, dev)
+    out = torch.empty((b, h, w), dtype=torch.float32, device=dev)
+    args = rc.lanczos_args(imgs, rs._device_bands(in_h, h, dev), rs._device_bands(in_w, w, dev),
+                           plan, out)
+    fn = sc._lib().sag_lanczos
+    info = rc.lanczos_kernel_info(rc._DTYPE_CODES[imgs.dtype], plan.rows, plan.cols)
+    log(f"K7 plan at {tuple(imgs.shape)} {imgs.dtype} -> {out_shape}: {plan}; {json.dumps(info)}")
+
+    def call():
+        if fn(*args, torch.cuda.current_stream(dev).cuda_stream) != 0:
+            raise RuntimeError("sag_lanczos failed")
+
+    return call
+
+
 def check_resample(dev, entry):
     """K7 at the pixel path's run point (16 raw 2160^2 uint16 fields ->
     1080^2), on f32 input, upsampling uint8 and an odd non-square batch of
-    one, each against its plain form; timed at the run point beside the
-    dense matmul pair that is the reference's XLA contract."""
+    one, each against its plain form and timed bare (the C call alone,
+    tables and plan made beforehand); at the run point also through the
+    wrapper, beside the dense matmul pair that is the reference's XLA
+    contract."""
     import torch
 
     from saguaro_tpu_torch.kernels import resample as rs
@@ -668,11 +827,16 @@ def check_resample(dev, entry):
     out = (RAW // 2, RAW // 2)
     imgs = raw((PIX_BATCH, RAW, RAW), 65536, torch.uint16)
     err = hold_resample("16 x 2160^2 uint16 -> 1080^2", imgs, out)
-    hold_resample("4 x 2160^2 f32 -> 1080^2", imgs[:4].float() * 0.37 - 1.0e4, out)
-    hold_resample("2 x 540x720 uint8 -> 1080x1440", raw((2, 540, 720), 256, torch.uint8),
-                  (1080, 1440))
-    hold_resample("1 x 1001x1537 uint16 -> 433x761", raw((1, 1001, 1537), 65536, torch.uint16),
-                  (433, 761))
+    others = {
+        "4 x 2160^2 f32 -> 1080^2": (imgs[:4].float() * 0.37 - 1.0e4, out),
+        "2 x 540x720 uint8 -> 1080x1440": (raw((2, 540, 720), 256, torch.uint8), (1080, 1440)),
+        "1 x 1001x1537 uint16 -> 433x761": (raw((1, 1001, 1537), 65536, torch.uint16), (433, 761)),
+    }
+    for name, (x, shape) in others.items():
+        hold_resample(name, x, shape)
+        log(f"K7 {name}: bare {time_launches_ms(lanczos_bare(x, shape)):.4f} ms, wrapper "
+            f"{time_ms(lambda: rs.lanczos_resample(x, shape), 10):.4f} ms")
+    del others
     # the separable work: each output row's taps over every input column,
     # then each output's taps along the row (multiply + add each)
     _, ny, _ = rs.axis_windows(RAW, out[0])
@@ -684,7 +848,7 @@ def check_resample(dev, entry):
           "saguaro_tpu/kernels/resample_pallas.py:125", err,
           lambda: rs.lanczos_resample(imgs, out), lambda: rs.resize_plain(imgs, out),
           n_bytes=2.0 * PIX_BATCH * RAW * RAW + 4.0 * PIX_BATCH * out[0] * out[1], n_ops=ops,
-          library=lambda: torch.matmul(torch.matmul(ry, xf), rx.T))
+          library=lambda: torch.matmul(torch.matmul(ry, xf), rx.T), bare=lanczos_bare(imgs, out))
 
 
 def run_pixel_path(dev, size=RAW, n_fields=PIX_FIELDS, n_planes=PIX_PLANES, seed=11):
@@ -877,6 +1041,52 @@ def check_recovery(rec, gt):
         union = inter[1:, :].sum(axis=1) + inter[:, 1:].sum(axis=0)[inter[1:, 1:].argmax(axis=1)] - best
         if (best / union).min() < 0.95:
             raise AssertionError(f"recovered mask IoU {float((best / union).min()):.3f} < 0.95")
+
+
+def run_single_site(images, gt, dev, crop: int = 360) -> dict:
+    """The single-site path on the card: ``SegmentEmbedEngine.segment`` on
+    one site (its labels' shape and type checked), and Euler
+    ``compute_masks`` on a site's ground-truth centroid flows, held against
+    the ground truth (IoU >= 0.95 a cell) and, on a ``crop`` x ``crop``
+    corner, against the same call on the CPU (equal labels: the steps sum
+    as the reference does, in the same order on both devices). Returns
+    seconds: segment a site, Euler recovery of a site."""
+    import torch
+
+    from saguaro_tpu_torch.kernels.flow_ode import centroid_flows, compute_masks
+    from saguaro_tpu_torch.pipeline.segment_embed import SegmentEmbedConfig, SegmentEmbedEngine
+
+    engine = SegmentEmbedEngine(SegmentEmbedConfig(channels=list(CHANNELS), diameter=100.0),
+                                seed=0, device=dev)
+    sync = torch.cuda.synchronize if torch.device(dev).type == "cuda" else (lambda: None)
+    engine.segment(images[1])
+    sync()
+    t0 = time.perf_counter()
+    lab = engine.segment(images[0])
+    t_seg = time.perf_counter() - t0
+    if lab.shape != images.shape[1:3] or lab.dtype != np.int32:
+        raise AssertionError(f"segment returned {lab.shape} {lab.dtype}")
+    flows = centroid_flows(gt[0]) * 5.0
+    prob = np.where(gt[0] > 0, 5.0, -5.0).astype(np.float32)
+    t0 = time.perf_counter()
+    rec = compute_masks(flows, prob, device=dev)
+    t_rec = time.perf_counter() - t0
+    check_recovery([rec], gt[:1])
+    part = gt[0, :crop, :crop]
+    ids = np.unique(part[part > 0])
+    # cells cut by the crop's edge stay in: the flows are the crop's own
+    part = np.searchsorted(np.concatenate([[0], ids]), part).astype(np.int32)
+    f_part = centroid_flows(part) * 5.0
+    p_part = np.where(part > 0, 5.0, -5.0).astype(np.float32)
+    on_card = compute_masks(f_part, p_part, device=dev)
+    on_cpu = compute_masks(f_part, p_part, device="cpu")
+    if not np.array_equal(on_card, on_cpu):
+        raise AssertionError(f"Euler masks on the card and the CPU differ at "
+                             f"{int((on_card != on_cpu).sum())} pixels")
+    log(f"single site: segment {t_seg:.4f} s ({int(lab.max())} masks, untrained weights); Euler "
+        f"recovery {t_rec:.4f} s, {int(rec.max())} cells, IoU >= 0.95; {crop}^2 crop: card and "
+        f"CPU labels equal ({int(on_cpu.max())} cells)")
+    return {"segment": t_seg, "recover_euler": t_rec}
 
 
 def check_tables(tables, n_cells):
@@ -1089,7 +1299,7 @@ def main() -> int:
     lib = sc.build_kernels()
     sc._lib()
     log(f"built {lib.name} in {time.perf_counter() - t0:.1f} s")
-    log_k4_resources((lib.parent / "build.log").read_text())
+    log_resources((lib.parent / "build.log").read_text())
 
     images, gt = synthetic_sites(N_SITES, SIZE, seed=0)
     n_cells = int(gt[0].max())
@@ -1104,32 +1314,40 @@ def main() -> int:
     check_small_against_cpu(dev)
 
     sc.reset_launch_counts()
-    with K1Sites(keep=False) as k1_sites:
+    with K1Sites(keep=False) as k1_sites, K3Sites(keep=False) as k3_sites:
         tables, rec, secs = run_main_path(images, gt, dev)
         torch.cuda.synchronize()
     launches = dict(sc.LAUNCHES)
+    sites = {"seg_counts": k1_sites, "seg_sums": k3_sites}
     log(f"main path launches {launches}; s/site " + ", ".join(f"{k} {v:.4f}" for k, v in secs.items()))
     log("main path K1 launches by call site and shape (max_cells x planes): " + "; ".join(
         f"{k1_sites.names()[k]} {k[:3]} {k[3]} x {len(k[4])} planes {sorted(set(k[4]))}: {c}"
         for k, c in k1_sites.calls.items()))
-    if sum(k1_sites.calls.values()) != launches["seg_counts"]:
-        raise AssertionError(f"K1's call sites {k1_sites.calls} do not add up to its "
-                             f"{launches['seg_counts']} launches")
+    log(f"main path K3 launches by call site: {k3_sites.calls}")
+    for counter, rec_sites in sites.items():
+        if sum(rec_sites.calls.values()) != launches[counter]:
+            raise AssertionError(f"{counter}'s call sites {rec_sites.calls} do not add up to its "
+                                 f"{launches[counter]} launches")
     check_recovery(rec, gt)
     check_tables(tables, n_cells)
     missing = [k for k in measure_kernels if launches[k] < 1]
-    missing += [n for n, c in counters.items() if isinstance(c, tuple) and c[1] not in k1_sites.calls]
+    missing += [n for n, c in counters.items()
+                if isinstance(c, tuple) and c[1] not in sites[c[0]].calls]
     if missing:
         raise AssertionError(f"the main path did not launch {missing}")
     for name, entry in kernels.items():
         c = counters[name]
-        entry["launches"] = launches[c] if isinstance(c, str) else k1_sites.calls[c[1]]
+        entry["launches"] = launches[c] if isinstance(c, str) else sites[c[0]].calls[c[1]]
 
     sc.reset_launch_counts()
     run_job(images, gt, dev)
     if min(sc.LAUNCHES[k] for k in measure_kernels) < 1:
         raise AssertionError(f"the job did not launch every kernel: {sc.LAUNCHES}")
     log("stage seconds per site " + json.dumps(secs))
+
+    sc.reset_launch_counts()
+    single = run_single_site(images, gt, dev)
+    log("single-site seconds " + json.dumps(single) + f"; launches {dict(sc.LAUNCHES)}")
 
     check_pixel_small_against_cpu(dev)
     sc.reset_launch_counts()

@@ -1,12 +1,16 @@
 """Flow-following mask recovery — the Cellpose dynamics
-(port of ``saguaro_tpu/kernels/flow_ode.py``, pointer-jumping form).
+(port of ``saguaro_tpu/kernels/flow_ode.py``).
 
-Pixels above the cell-probability threshold follow the integer-rounded
-flow step; composing the successor map with itself k times integrates
-2^k steps. Converged positions are histogrammed, local maxima become
-seeds, seed labels spread over the dense region by 3x3 max sweeps, and
-every active pixel takes the label of its converged position. Relabeling
-and hole filling are host-side numpy/scipy post-passes.
+Pixels above the cell-probability threshold are advected along the flow
+field, by one of two integrators: stepwise Euler with bilinear flow
+interpolation (``follow_flows``, the single-site path), or pointer
+jumping (``follow_flows_pointer``, the batched path: each pixel follows
+the integer-rounded flow step, and composing the successor map with
+itself k times integrates 2^k steps). Converged positions are
+histogrammed, local maxima become seeds, seed labels spread over the
+dense region by 3x3 max sweeps, and every active pixel takes the label
+of its converged position. Relabeling and hole filling are host-side
+numpy/scipy post-passes.
 
 Batched: flows (B, 2, H, W), cellprob and labels (B, H, W).
 """
@@ -22,8 +26,10 @@ import torch.nn.functional as F
 from saguaro_tpu_torch.device import resolve_device
 
 __all__ = [
+    "follow_flows",
     "follow_flows_pointer",
     "masks_from_flows",
+    "compute_masks",
     "compute_masks_batch",
     "centroid_flows",
     "flow_qc_error",
@@ -31,6 +37,58 @@ __all__ = [
     "relabel_consecutive",
     "fill_label_holes",
 ]
+
+
+def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """a * b + c in f32 with one rounding: the f64 product of two f32
+    values is exact, so the f64 sum rounded to f32 is the fused result
+    (barring a double rounding, about once in 2^29 operations)."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def _bilinear(field: torch.Tensor, py: torch.Tensor, px: torch.Tensor) -> torch.Tensor:
+    """Bilinear sample of (B, H, W) ``field`` at float positions (B, N),
+    corners clipped to the image. The four corner terms are summed as the
+    reference's compiled expression sums them: the first two as one fused
+    multiply-add, then one more for each further term. A step's flow
+    agrees to the bit, and the bits matter: over 200 steps of a
+    diverging field a last-bit difference grows to pixels."""
+    b, h, w = field.shape
+    y0 = torch.clamp(torch.floor(py), 0, h - 1)
+    x0 = torch.clamp(torch.floor(px), 0, w - 1)
+    y1 = torch.clamp(y0 + 1, 0, h - 1)
+    x1 = torch.clamp(x0 + 1, 0, w - 1)
+    wy = py - y0
+    wx = px - x0
+    flat = field.reshape(b, h * w)
+
+    def take(yy, xx):
+        return torch.gather(flat, 1, (yy * w + xx).to(torch.int64))
+
+    s = _fma(take(y0, x0) * (1 - wy), 1 - wx, take(y0, x1) * (1 - wy) * wx)
+    s = _fma(take(y1, x0) * wy, 1 - wx, s)
+    return _fma(take(y1, x1) * wy, wx, s)
+
+
+def follow_flows(flows: torch.Tensor, active: torch.Tensor, n_iters: int = 200) -> torch.Tensor:
+    """Stepwise Euler flow following: (B, 2, H, W) [dy, dx] flows toward
+    the cell centres + (B, H, W) active -> (B, 2, H, W) final positions
+    (f32). Each of the ``n_iters`` steps samples the flow bilinearly at
+    every pixel's position; inactive pixels carry zero flow and do not
+    move, and positions are clipped to the image."""
+    b, _, h, w = flows.shape
+    dev = flows.device
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    fy = torch.where(active, flows[:, 0].float(), zero)
+    fx = torch.where(active, flows[:, 1].float(), zero)
+    py = torch.arange(h, dtype=torch.float32, device=dev).repeat_interleave(w).expand(b, -1)
+    px = torch.arange(w, dtype=torch.float32, device=dev).repeat(h).expand(b, -1)
+    for _ in range(n_iters):
+        dy = _bilinear(fy, py, px)
+        dx = _bilinear(fx, py, px)
+        py = torch.clamp(py + dy, 0.0, h - 1.0)
+        px = torch.clamp(px + dx, 0.0, w - 1.0)
+    return torch.stack([py, px], dim=1).reshape(b, 2, h, w)
 
 
 def follow_flows_pointer(
@@ -139,26 +197,57 @@ def compute_masks_batch(
     n_iters: int = 200,
     min_size: int = 15,
     seed_threshold: float = 10.0,
+    method: str = "pointer",
     device: str | torch.device | None = None,
 ) -> list[np.ndarray]:
     """(B, 2, H, W) network flows + (B, H, W) cellprob -> list of compact
     int32 label images. Threshold the probability, follow the flows
-    (scaled down by ``flow_scale``) by pointer jumping over
-    ceil(log2(n_iters)) doublings, cluster, then drop labels under
-    ``min_size`` pixels and relabel 1..K on the host.
+    (scaled down by ``flow_scale``), cluster, then drop labels under
+    ``min_size`` pixels and relabel 1..K on the host. ``method``:
+    'pointer' (pointer jumping over ceil(log2(n_iters)) doublings, the
+    batched path) or 'euler' (``n_iters`` bilinear Euler steps).
 
     Tensors stay on their device; numpy inputs go to ``device`` (CUDA
     unless the caller names one)."""
+    if method not in ("pointer", "euler"):
+        raise ValueError(f"method must be 'pointer' or 'euler' (got {method!r})")
     if not isinstance(flows, torch.Tensor):
         dev = resolve_device(device)
         flows = torch.as_tensor(np.asarray(flows), dtype=torch.float32, device=dev)
         cellprob = torch.as_tensor(np.asarray(cellprob), dtype=torch.float32, device=dev)
     active = cellprob > cellprob_threshold
     f = flows.float() / flow_scale
-    n_doublings = max(int(math.ceil(math.log2(max(n_iters, 2)))), 1)
-    pos = follow_flows_pointer(f, active, n_doublings)
+    if method == "pointer":
+        n_doublings = max(int(math.ceil(math.log2(max(n_iters, 2)))), 1)
+        pos = follow_flows_pointer(f, active, n_doublings)
+    else:
+        pos = follow_flows(f, active, n_iters)
     labels = masks_from_flows(pos, active, seed_threshold, 5).cpu().numpy()
     return [relabel_consecutive(lab, min_size=min_size) for lab in labels]
+
+
+def compute_masks(
+    flows,
+    cellprob,
+    cellprob_threshold: float = 0.0,
+    flow_scale: float = 5.0,
+    n_iters: int = 200,
+    min_size: int = 15,
+    seed_threshold: float = 10.0,
+    method: str = "euler",
+    device: str | torch.device | None = None,
+) -> np.ndarray:
+    """Single-image ``compute_masks_batch``: (2, H, W) flows + (H, W)
+    cellprob -> compact int32 labels, by Euler integration unless
+    ``method`` says 'pointer'."""
+    if isinstance(flows, torch.Tensor):
+        flows, cellprob = flows[None], cellprob[None]
+    else:
+        flows, cellprob = np.asarray(flows)[None], np.asarray(cellprob)[None]
+    return compute_masks_batch(
+        flows, cellprob, cellprob_threshold, flow_scale, n_iters, min_size, seed_threshold,
+        method, device,
+    )[0]
 
 
 def relabel_consecutive(labels: np.ndarray, min_size: int = 0) -> np.ndarray:

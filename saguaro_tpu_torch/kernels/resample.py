@@ -7,9 +7,10 @@ does (support scaled for downsampling, half-pixel centres, per-row
 normalisation), so ``out = Ry @ img @ Rx^T``.
 
 A CUDA tensor goes to K7 (``kernels/resample_cuda``, ``csrc/lanczos.cu``),
-which sums only each output's tap window. A CPU tensor takes the plain
-form, ``resize_plain``: the reference's dense two-matmul XLA contract in
-f32 with TF32 off. Integer dtypes then get PIL's round-half-up and clip.
+which sums only the tap windows of bands of 4 outputs (``axis_bands``). A
+CPU tensor takes the plain form, ``resize_plain``: the reference's dense
+two-matmul XLA contract in f32 with TF32 off. Integer dtypes then get
+PIL's round-half-up and clip.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ from saguaro_tpu_torch.kernels import resample_cuda
 
 __all__ = [
     "axis_windows",
+    "axis_bands",
     "lanczos_matrices",
     "lanczos_resample",
     "lanczos_resize",
@@ -146,14 +148,42 @@ def _cast(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return x.to(dtype)
 
 
-@lru_cache(maxsize=32)
-def _device_axis(in_size: int, out_size: int, device: torch.device, transpose: bool):
-    """``axis_windows`` on ``device``: (start, n, weights), the weights
-    (taps, out) when ``transpose`` (K7 reads the x axis' taps of 32
-    neighbouring outputs together)."""
+@lru_cache(maxsize=64)
+def axis_bands(in_size: int, out_size: int):
+    """``axis_windows`` cut into bands of 4 neighbouring outputs, as K7
+    reads them: per band g (outputs 4g .. 4g+3) its first input ``base``
+    and ``span``, the union of its outputs' tap windows, in ``meta`` (G, 2)
+    int32, and the dense weights ``w`` (G, span_max, 4) f32 with ``w[g, t,
+    r] = R[4g + r, base + t]``: zero beyond an output's window and for the
+    missing outputs of a last, partial band."""
     start, n, w = axis_windows(in_size, out_size)
-    w = np.ascontiguousarray(w.T) if transpose else w
-    return tuple(torch.as_tensor(a, device=device) for a in (start, n, w))
+    n_bands = -(-out_size // 4)
+    meta = np.zeros((n_bands, 2), np.int32)
+    for g in range(n_bands):
+        outs = [o for o in range(4 * g, min(4 * g + 4, out_size)) if n[o] > 0]
+        if outs:
+            lo = min(int(start[o]) for o in outs)
+            meta[g] = lo, max(int(start[o] + n[o]) for o in outs) - lo
+    bands = np.zeros((n_bands, max(int(meta[:, 1].max()), 1), 4), np.float32)
+    for o in range(out_size):
+        g, r = divmod(o, 4)
+        t0 = int(start[o]) - int(meta[g, 0])
+        bands[g, t0 : t0 + n[o], r] = w[o, : n[o]]
+    return meta, bands
+
+
+@lru_cache(maxsize=32)
+def _device_bands(in_size: int, out_size: int, device: torch.device):
+    """``axis_bands`` on ``device``, built once per (in, out, device)."""
+    return tuple(torch.as_tensor(a, device=device) for a in axis_bands(in_size, out_size))
+
+
+@lru_cache(maxsize=32)
+def _card_plan(in_h, in_w, out_h, out_w, batch, dtype, device):
+    """K7's plan for this shape on ``device``, made once."""
+    return resample_cuda.lanczos_card_plan(
+        axis_bands(in_h, out_h)[0], axis_bands(in_w, out_w)[0], batch, dtype, device
+    )
 
 
 def lanczos_resample(imgs: torch.Tensor, out_shape: tuple[int, int]) -> torch.Tensor:
@@ -164,10 +194,12 @@ def lanczos_resample(imgs: torch.Tensor, out_shape: tuple[int, int]) -> torch.Te
     if not imgs.is_cuda:
         return resize_plain(imgs, out_shape)
     x = imgs if imgs.dtype in _KERNEL_DTYPES else imgs.float()
-    _, in_h, in_w = x.shape
-    y_tab = _device_axis(in_h, out_shape[0], x.device, False)
-    x_tab = _device_axis(in_w, out_shape[1], x.device, True)
-    return resample_cuda.lanczos_resize_cuda(x.contiguous(), y_tab, x_tab)
+    b, in_h, in_w = x.shape
+    (h, w), dev = out_shape, x.device
+    plan = _card_plan(in_h, in_w, h, w, b, x.dtype, dev)
+    return resample_cuda.lanczos_resize_cuda(
+        x.contiguous(), _device_bands(in_h, h, dev), _device_bands(in_w, w, dev), plan, out_shape
+    )
 
 
 def lanczos_resize_batch(imgs, out_shape: tuple[int, int], dtype: torch.dtype | None = None):

@@ -20,9 +20,9 @@ K7, the Lanczos re-binner of the pixel stages (``csrc/lanczos.cu``), is
 built into the same library and counted here as ``lanczos_resize``.
 
 Every kernel takes a leading site-batch dimension, so one launch covers a
-batch. The sources are compiled at first use by one ``nvcc`` call into a
-shared library with a plain C interface (``_build/``, git-ignored) and
-bound with ``ctypes``. Each wrapper checks device, dtype, shape and
+batch. The sources are compiled at first use, one ``nvcc`` a source in
+parallel, into a shared library with a plain C interface (``_build/``,
+git-ignored) and bound with ``ctypes``. Each wrapper checks device, dtype, shape and
 contiguity, allocates its output with torch, launches on the current CUDA
 stream, raises when the launch reports an error, and counts its launches
 in ``LAUNCHES``. A wrapper given a tensor that is not on a CUDA device
@@ -40,6 +40,7 @@ import shutil
 import subprocess
 import tempfile
 from dataclasses import dataclass
+from functools import lru_cache
 from pathlib import Path
 
 import torch
@@ -59,6 +60,11 @@ __all__ = [
     "take_t_plain",
     "seg_sums",
     "sums_plain",
+    "sums_plan",
+    "sums_card_plan",
+    "sums_width",
+    "SumsPlan",
+    "sums_kernel_info",
     "seg_lane_sums_a",
     "lane_sums_a_plain",
     "seg_lane_sums_c",
@@ -86,7 +92,7 @@ _SOURCES = (
 )
 _NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 _MAX_CH = 8  # SAG_MAX_CH in lane_sums.cu
 
@@ -128,8 +134,9 @@ def _nvcc() -> str:
 
 def build_kernels() -> Path:
     """Compile ``csrc/*.cu`` into ``_build/libsaguaro_seg_<hash>.so`` unless a
-    library built from the same sources and flags is already there. The
-    compiler's register/shared-memory report goes to ``_build/build.log``."""
+    library built from the same sources and flags is already there: one
+    ``nvcc -c`` a source, all started together, then one link. The
+    compilers' register/shared-memory reports go to ``_build/build.log``."""
     digest = hashlib.sha256(" ".join(_NVCC_FLAGS).encode())
     for name in _SOURCES:
         digest.update((_CSRC / name).read_bytes())
@@ -137,17 +144,28 @@ def build_kernels() -> Path:
     if lib.exists():
         return lib
     _BUILD.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD)
-    os.close(fd)
-    cmd = [_nvcc(), *_NVCC_FLAGS, "-o", tmp] + [
-        str(_CSRC / n) for n in _SOURCES if n.endswith(".cu")
-    ]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    (_BUILD / "build.log").write_text(res.stdout + res.stderr)
-    if res.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr[-4000:]}")
-    os.replace(tmp, lib)
+    objs = Path(tempfile.mkdtemp(dir=_BUILD))
+    try:
+        procs = [
+            (n, subprocess.Popen([_nvcc(), *_NVCC_FLAGS, "-c", "-o", str(objs / f"{n}.o"),
+                                  str(_CSRC / n)], stdout=subprocess.PIPE,
+                                 stderr=subprocess.STDOUT, text=True))
+            for n in _SOURCES if n.endswith(".cu")
+        ]
+        logs = [(n, p.communicate()[0], p.returncode) for n, p in procs]
+        (_BUILD / "build.log").write_text("".join(f"== {n}\n{out}" for n, out, _ in logs))
+        failed = [f"{n}:\n{out[-3000:]}" for n, out, rc in logs if rc != 0]
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        tmp = objs / "lib.so"
+        res = subprocess.run([_nvcc(), "-shared", "-o", str(tmp),
+                              *(str(objs / f"{n}.o") for n, _, _ in logs)],
+                             capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({res.returncode}):\n{res.stderr[-4000:]}")
+        os.replace(tmp, lib)
+    finally:
+        shutil.rmtree(objs, ignore_errors=True)
     return lib
 
 
@@ -157,7 +175,8 @@ SIGNATURES = {
     "sag_counts": (_P, _P, _P, _P, _I, _LL) + (_I,) * 11 + (_P,),
     "sag_counts_info": (_I, _I, _P),
     "sag_take_t": (_P, _P, _P, _I, _LL, _I, _I, _P),
-    "sag_sums": (_P, _P, _P, _I, _LL, _I, _I, _P),
+    "sag_sums": (_P, _P, _P, _I, _LL, _I, _I, _I, _I, _I, _LL, _P),
+    "sag_sums_info": (_I, _I, _P),
     "sag_lanes_a": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     "sag_lanes_c": (_P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     "sag_lanes_e": (_P, _P, _P, _P, _P, _P, _I, _LL, _I, _I, _I, _P),
@@ -165,7 +184,8 @@ SIGNATURES = {
     "sag_radial_sums": (_P, _P, _P, _P, _I, _LL, _I, _I, _I, _P),
     "sag_edt_sweep": (_P, _P, _P, _I, _I, _I, _I, _P),
     "sag_pick2": (_P, _P, _P, _P, _I, _LL, _I, _I, _P),
-    "sag_lanczos": (_P, _I, _P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "sag_lanczos": (_P, _I, _P, _P, _P, _I, _I, _P, _P, _I, _I, _P, _P) + (_I,) * 9 + (_P,),
+    "sag_lanczos_info": (_I, _I, _I, _P),
 }
 
 
@@ -480,33 +500,128 @@ def take_t_plain(table: torch.Tensor, seg: torch.Tensor, max_cells: int) -> torc
 # K3: per-label sums
 
 
+# K3's launch plan (csrc/sums.cu). A CTA holds a (max_cells x width) f32
+# table in shared memory and reads one contiguous range of a site's pixels,
+# 4 a 16-byte vector.
+K3_THREADS = 256                # K3_THREADS in sums.cu
+K3_UNROLL = 2                   # K3_UNROLL in sums.cu: vectors a thread an iteration
+K3_MAX_WIDTH = 4                # value lanes one launch takes (kernels for 1..4)
+K3_TABLE_BYTES = 96 * 1024      # shared table a CTA at most
+K3_MIN_VECS = K3_THREADS * K3_UNROLL  # vectors a CTA takes at least: one iteration
+
+
+def sums_width(k_cols: int, max_cells: int) -> int:
+    """Value lanes of one K3 launch: at most K3_MAX_WIDTH, with a
+    (max_cells x width) f32 table of at most K3_TABLE_BYTES."""
+    if max_cells < 1 or k_cols < 1:
+        raise ValueError(f"K3 needs max_cells and value lanes >= 1: {max_cells}, {k_cols}")
+    width = min(k_cols, K3_MAX_WIDTH, K3_TABLE_BYTES // (4 * max_cells))
+    if width < 1:
+        raise ValueError(f"K3 cannot hold {max_cells} labels: one lane's table exceeds "
+                         f"{K3_TABLE_BYTES} B")
+    return width
+
+
+@dataclass(frozen=True)
+class SumsPlan:
+    """K3's launch plan: ``chunks`` of value lanes [c0, c1), one launch
+    each (a chunk short of all lanes is copied out contiguous first);
+    ``ctas`` CTAs a site, each over ``vecs`` 16-byte label vectors of the
+    site's aligned pixels (the ragged head and tail of a site, at most 3
+    pixels each, go to its first CTA)."""
+
+    chunks: tuple[tuple[int, int], ...]
+    ctas: int
+    vecs: int
+
+
+def sums_plan(batch: int, n: int, k_cols: int, max_cells: int, resident: int) -> SumsPlan:
+    """K3's plan for (batch, n) labels with ``k_cols`` value lanes, given
+    the card's ``resident`` CTAs (SMs x CTAs a SM): lanes in chunks of
+    ``sums_width``, and about one wave of CTAs over the batch, each taking
+    at least K3_MIN_VECS vectors. Raises ValueError for a table that no
+    plan holds."""
+    width = sums_width(k_cols, max_cells)
+    if batch < 1 or batch > 65535 or n < 0:
+        raise ValueError(f"K3 takes 1..65535 sites of n >= 0 pixels a launch (got {batch}, {n})")
+    chunks = tuple((c, min(c + width, k_cols)) for c in range(0, k_cols, width))
+    n_vec = n // 4  # no fewer than any site's aligned vectors
+    ctas = max(1, min(-(-max(resident, 1) // batch), -(-n_vec // K3_MIN_VECS)))
+    return SumsPlan(chunks, ctas, -(-n_vec // ctas))
+
+
+@lru_cache(maxsize=None)
+def sums_kernel_info(width: int, max_cells: int) -> dict[str, int]:
+    """Resources of K3's ``width``-lane kernel with a (max_cells x width)
+    table on the current card: registers and local (spilled) bytes a
+    thread, dynamic shared bytes, resident CTAs a SM."""
+    info = (ctypes.c_int * 4)()
+    rc = _lib().sag_sums_info(width, max_cells, info)
+    if rc != 0:
+        raise RuntimeError(f"sag_sums_info failed: CUDA error {rc}")
+    return dict(zip(("registers", "local_bytes", "smem", "ctas_per_sm"), info))
+
+
+@lru_cache(maxsize=64)
+def sums_card_plan(batch: int, n: int, k_cols: int, max_cells: int,
+                   device: torch.device) -> SumsPlan:
+    """``sums_plan`` for ``device``'s SMs and the kernel's residency."""
+    per_sm = sums_kernel_info(sums_width(k_cols, max_cells), max_cells)["ctas_per_sm"]
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return sums_plan(batch, n, k_cols, max_cells, sms * per_sm)
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or a copy of it whose data starts on a 16-byte boundary."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def sums_launches(labels: torch.Tensor, values: torch.Tensor, out: torch.Tensor,
+                  plan: SumsPlan) -> list[tuple]:
+    """The ``sag_sums`` argument lists of ``plan``'s launches (without the
+    stream) and the tensors they point into, which must outlive them."""
+    b, n = labels.shape
+    k, mc = values.shape[2], out.shape[1]
+    labels = _aligned(labels)
+    launches = []
+    for c0, c1 in plan.chunks:
+        vals = values if (c0, c1) == (0, k) else values[..., c0:c1].contiguous()
+        vals = _aligned(vals)
+        launches.append(((labels.data_ptr(), vals.data_ptr(), out.data_ptr(), b, n, c1 - c0, k,
+                          c0, mc, plan.ctas, plan.vecs), (labels, vals)))
+    return launches
+
+
 def seg_sums(labels: torch.Tensor, values: torch.Tensor, max_cells: int) -> torch.Tensor:
     """(B, N) int32 labels + (B, N, K) f32 values -> (B, max_cells, K) f32
-    per-label sums (labels outside [0, max_cells) are dropped)."""
+    per-label sums (labels outside [0, max_cells) are dropped), one launch
+    a lane chunk of ``sums_plan``."""
     _check(labels, "labels", torch.int32, 2)
     _check(values, "values", torch.float32, 3)
     b, n = labels.shape
     if values.shape[:2] != (b, n):
         raise ValueError(f"values {tuple(values.shape)} do not match labels {(b, n)}")
     k = values.shape[2]
-    out = torch.zeros((b, max_cells, k), dtype=torch.float32, device=labels.device)
-    _launch(
-        "sag_sums", "seg_sums", labels.device,
-        labels.data_ptr(), values.data_ptr(), out.data_ptr(), b, n, k, max_cells,
-    )
+    dev = labels.device
+    plan = sums_card_plan(b, n, k, max_cells, dev)
+    out = torch.zeros((b, max_cells, k), dtype=torch.float32, device=dev)
+    for args, _ in sums_launches(labels, values, out, plan):
+        _launch("sag_sums", "seg_sums", dev, *args)
     return out
 
 
-def sums_plain(labels: torch.Tensor, values: torch.Tensor, max_cells: int) -> torch.Tensor:
-    """Plain PyTorch form of ``seg_sums`` (``index_add_`` into label rows)."""
+def sums_plain(labels: torch.Tensor, values: torch.Tensor, max_cells: int,
+               dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Plain PyTorch form of ``seg_sums`` (``index_add_`` into label rows),
+    summed in ``dtype``."""
     b, n = labels.shape
     k = values.shape[2]
     lab = labels.long()
     ok = (lab >= 0) & (lab < max_cells)
     site = torch.arange(b, device=labels.device)[:, None] * max_cells
     idx = torch.where(ok, site + lab, b * max_cells).reshape(-1)
-    out = torch.zeros((b * max_cells + 1, k), dtype=torch.float32, device=labels.device)
-    out.index_add_(0, idx, values.reshape(b * n, k).float())
+    out = torch.zeros((b * max_cells + 1, k), dtype=dtype, device=labels.device)
+    out.index_add_(0, idx, values.reshape(b * n, k).to(dtype))
     return out[: b * max_cells].view(b, max_cells, k)
 
 

@@ -35,6 +35,7 @@ __all__ = [
     "init_cellpose",
     "convert_input",
     "normalize_input",
+    "segment_image",
     "segment_image_batch",
 ]
 
@@ -359,3 +360,22 @@ def segment_image_batch(
     xs = _tile_grid(max(w1, t), t, config.tile_overlap)
     out_hw = None if at_network_resolution else (h0, w0)
     return _segment_full_batch(model, images, (h1, w1), t, ys, xs, out_hw, n_seg)
+
+
+def segment_image(
+    model: CellposeUNet,
+    image: torch.Tensor,
+    config: CellposeConfig = CellposeConfig(),
+    diameter: float | None = None,
+    at_network_resolution: bool = False,
+):
+    """Single-image full pass over an (H, W, C) image on the model's
+    device: per-image normalisation, the bilinear rescale to the network
+    resolution, tiling and the taper merge, as the batched pass on a batch
+    of one. Returns (flows (2, h, w), cellprob (h, w), None), at the
+    original resolution or, with ``at_network_resolution``, at the rescaled
+    one (the reference's (flows, cellprob, styles) with no styles)."""
+    flows, cellprob = segment_image_batch(
+        model, image[None], config, diameter=diameter, at_network_resolution=at_network_resolution
+    )
+    return flows[0], cellprob[0], None

@@ -4,7 +4,10 @@
 A site batch goes through CPnet tiled inference at the diameter-rescaled
 network resolution, pointer-jumping flow recovery, cellpose's flow-error
 QC and hole filling, and a nearest upsample of the labels back to the
-input resolution. The embed half (crops + EfficientNetV2) comes in a later
+input resolution. A single site (``segment``) takes the reference's
+single-site path: Euler flow recovery, the flow-error QC, the nearest
+upsample, then hole filling and the min-size filter at the input
+resolution. The embed half (crops + EfficientNetV2) comes in a later
 slice: its methods raise ``NotImplementedError`` and the engine builds no
 embedding network.
 """
@@ -19,6 +22,7 @@ import torch
 
 from saguaro_tpu_torch.device import resolve_device
 from saguaro_tpu_torch.kernels.flow_ode import (
+    compute_masks,
     compute_masks_batch,
     fill_label_holes,
     flow_qc_error_batch,
@@ -29,6 +33,7 @@ from saguaro_tpu_torch.models.cellpose import (
     convert_input,
     init_cellpose,
     resize_nearest,
+    segment_image,
     segment_image_batch,
 )
 
@@ -84,9 +89,46 @@ class SegmentEmbedEngine:
 
     # ---------------- segmentation ----------------
 
+    @torch.no_grad()
     def segment(self, image) -> np.ndarray:
-        """(H, W, C) -> int32 label mask (a batch of one)."""
-        return np.asarray(self.segment_batch(np.asarray(image)[None])[0].cpu())
+        """(H, W, C) raw site (numpy of any dtype, or a tensor) -> int32
+        label mask, as the reference's single-site path: the network at the
+        rescaled resolution, Euler mask recovery with no size filter, the
+        flow-error QC, a nearest upsample to the input resolution, hole
+        filling, then the min-size filter and a consecutive relabeling."""
+        cfg = self.cfg
+        x = self._to_device(image)
+        net_in = convert_input(x, cfg.cellpose.n_channels)
+        flows, cellprob, _ = segment_image(
+            self.cell_model, net_in, cfg.cellpose, diameter=cfg.diameter,
+            at_network_resolution=True,
+        )
+        labels_low = compute_masks(
+            flows, cellprob,
+            cellprob_threshold=cfg.cellprob_threshold,
+            n_iters=cfg.flow_iters,
+            min_size=0,  # the min-size filter runs at the input resolution below
+        )
+        if cfg.flow_error_threshold is not None:
+            labels_low = self._drop_bad_flow_masks(labels_low, flows / 5.0)
+        h0, w0 = x.shape[:2]
+        labels = np.asarray(labels_low)
+        if labels.shape != (h0, w0):
+            low = torch.as_tensor(labels.astype(np.int32))[None]
+            labels = resize_nearest(low, (h0, w0))[0].numpy()
+        if cfg.fill_holes:
+            labels = fill_label_holes(labels)
+        return relabel_consecutive(labels, min_size=cfg.min_size)
+
+    def _to_device(self, images) -> torch.Tensor:
+        """Raw images (numpy of any dtype, or a tensor) on the engine's
+        device; uint16 widens to int32 on the host."""
+        if isinstance(images, torch.Tensor):
+            return images.to(self.device)
+        arr = np.asarray(images)
+        if arr.dtype == np.uint16:
+            arr = arr.astype(np.int32)
+        return torch.as_tensor(arr, device=self.device)
 
     def _drop_bad_flow_masks_batch(
         self, labels_list: list[np.ndarray], flows: torch.Tensor
@@ -138,14 +180,7 @@ class SegmentEmbedEngine:
         centres, as ``jax.image.resize``) to the input resolution.
         """
         cfg = self.cfg
-        if isinstance(images, torch.Tensor):
-            x = images.to(self.device)
-        else:
-            arr = np.asarray(images)
-            if arr.dtype == np.uint16:
-                arr = arr.astype(np.int32)
-            x = torch.as_tensor(arr, device=self.device)
-        x = convert_input(x, cfg.cellpose.n_channels)
+        x = convert_input(self._to_device(images), cfg.cellpose.n_channels)
         flows, cellprob = segment_image_batch(
             self.cell_model, x, cfg.cellpose, diameter=cfg.diameter,
             at_network_resolution=True,

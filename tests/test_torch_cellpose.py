@@ -89,6 +89,24 @@ def test_segment_image_batch_matches(nets, at_net):
     np.testing.assert_allclose(pg.numpy(), pw, rtol=0, atol=1e-4 * np.abs(pw).max())
 
 
+@pytest.mark.parametrize("at_net", [True, False])
+def test_segment_image_matches(nets, at_net):
+    """The single-image full pass against the reference's, within the
+    batched pass's tolerance."""
+    model, variables, cfg_ref, net, cfg = nets
+    img = np.random.default_rng(2).integers(80, 3000, (130, 90, 2)).astype(np.float32)
+    with jax.default_matmul_precision("highest"):
+        fw, pw, _ = ref.segment_image(model.apply, variables, img, cfg_ref, diameter=60.0,
+                                      at_network_resolution=at_net)
+    fg, pg, styles = port.segment_image(net, torch.from_numpy(img), cfg, diameter=60.0,
+                                        at_network_resolution=at_net)
+    fw, pw = np.asarray(fw), np.asarray(pw)
+    assert styles is None and fg.shape == fw.shape and pg.shape == pw.shape
+    assert fg.shape[1:] == ((130, 90) if not at_net else port._network_shape(130, 90, cfg, 60.0))
+    np.testing.assert_allclose(fg.numpy(), fw, rtol=0, atol=1e-4 * np.abs(fw).max())
+    np.testing.assert_allclose(pg.numpy(), pw, rtol=0, atol=1e-4 * np.abs(pw).max())
+
+
 @pytest.mark.parametrize("n_in,n_out", [(150, 45), (45, 150), (1080, 324), (7, 7)])
 def test_bilinear_weights_match_jax_resize(n_in, n_out):
     x = np.random.default_rng(2).normal(size=(1, n_in, 3, 1)).astype(np.float32)

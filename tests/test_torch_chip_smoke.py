@@ -1,6 +1,8 @@
 """chip_smoke.py without a card: it exits non-zero and prints no result,
 in the repository and in a directory holding nothing else; its main path
-(engine -> mask recovery -> measurement -> job) and its pixel path
+(engine -> mask recovery -> measurement -> job), its single-site phase
+(engine segment, Euler recovery held against the ground truth and the
+CPU) and its pixel path
 (max projection -> re-binning -> illumination estimate -> QC) rehearse on
 the CPU at a small size through the plain forms."""
 
@@ -51,6 +53,12 @@ def test_main_path_rehearsal_on_cpu(smoke):
     smoke.check_tables(tables, 4)
     assert set(secs) == {"segment", "recover", "measure"}
     assert (tables[0]["Cells"]["AreaShape_Area"].values > tables[0]["Nuclei"]["AreaShape_Area"].values).all()
+
+
+def test_single_site_rehearsal_on_cpu(smoke):
+    images, gt = smoke.synthetic_sites(2, 200, seed=6)
+    secs = smoke.run_single_site(images, gt, "cpu", crop=100)
+    assert set(secs) == {"segment", "recover_euler"} and all(v > 0 for v in secs.values())
 
 
 def test_small_batch_check_rehearsal_on_cpu(smoke):

@@ -169,6 +169,73 @@ def test_sums_kernel(cuda):
     assert torch.equal(got[..., 0], want[..., 0])
 
 
+def _sums_case(rng, case, b, n, k, mc):
+    """K3 inputs: labels in runs (some < 0, some >= mc), values with most
+    pixels 0 (the Euler stream's shape) or none, small integers in lane 0."""
+    if case == "one label":
+        lab = np.full((b, n), min(7, mc - 1), np.int32)
+    else:
+        runs = rng.integers(-3, mc + 5, b * n // 6 + 1)
+        lab = np.repeat(runs, rng.integers(1, 12, runs.size))[: b * n]
+        lab = np.pad(lab, (0, b * n - lab.size), constant_values=mc + 1).reshape(b, n).astype(np.int32)
+    vals = rng.normal(0, 100, (b, n, k)).astype(np.float32)
+    vals[..., 0] = rng.integers(-2, 3, (b, n))
+    if case == "sparse":
+        vals[rng.random((b, n)) < 0.97] = 0.0
+    elif case == "zeros":
+        vals[:] = 0.0
+    return lab, vals
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "case,b,n,k,mc",
+    [
+        ("sparse", 3, 50_001, 1, 512),     # N odd: sites 2 and 3 start off a 16-byte boundary
+        ("dense", 2, 40_006, 2, 512),      # N not a multiple of 4
+        ("dense", 1, 70_000, 5, 1024),     # B = 1, lanes in two launches (4 + 1)
+        ("dense", 4, 9_999, 2, 16),        # a small table: many pixels a slot
+        ("sparse", 2, 3, 1, 512),          # sites shorter than one vector
+        ("zeros", 2, 30_001, 2, 512),      # nothing to add
+        ("one label", 2, 60_003, 1, 1024), # one label everywhere: one run a warp
+    ],
+)
+def test_sums_kernel_cases(cuda, case, b, n, k, mc):
+    """K3 against the plain form: lane 0 (small integers) exactly, the
+    other lanes to 1e-5 of each label's sum of |value|; labels < 0 and >=
+    mc dropped."""
+    rng = np.random.default_rng(n + k)
+    lab_h, vals_h = _sums_case(rng, case, b, n, k, mc)
+    lab, vals = torch.from_numpy(lab_h).to(cuda), torch.from_numpy(vals_h).to(cuda)
+    before = sc.LAUNCHES["seg_sums"]
+    got = sc.seg_sums(lab, vals, mc)
+    torch.cuda.synchronize()
+    assert sc.LAUNCHES["seg_sums"] == before + len(sc.sums_plan(b, n, k, mc, 528).chunks)
+    want = sc.sums_plain(lab, vals, mc, dtype=torch.float64)
+    scale = sc.sums_plain(lab, vals.abs(), mc, dtype=torch.float64)
+    assert torch.equal(got[..., 0].double(), want[..., 0])
+    assert torch.all((got.double() - want).abs() <= 1e-5 * scale + 1e-6)
+    if case == "zeros":
+        assert not got.any()
+
+
+@pytest.mark.cuda
+def test_sums_kernel_unaligned_views(cuda):
+    """Labels and values that start off a 16-byte boundary (views one
+    pixel into their storage) are summed like aligned copies."""
+    rng = np.random.default_rng(5)
+    lab_h, vals_h = _sums_case(rng, "dense", 2, 20_001, 2, 512)
+    lab = torch.from_numpy(np.concatenate([np.zeros(1, np.int32), lab_h.reshape(-1)]))
+    lab = lab.to(cuda)[1:].view(2, 20_001)
+    vals = torch.from_numpy(np.concatenate([np.zeros((1, 2), np.float32),
+                                            vals_h.reshape(-1, 2)])).to(cuda)[1:].view(2, 20_001, 2)
+    assert lab.data_ptr() % 16 and vals.data_ptr() % 16
+    got = sc.seg_sums(lab, vals, 512)
+    want = sc.sums_plain(lab, vals, 512, dtype=torch.float64)
+    scale = sc.sums_plain(lab, vals.abs(), 512, dtype=torch.float64)
+    assert torch.all((got.double() - want).abs() <= 1e-5 * scale + 1e-6)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("n_ch", [1, 5])
 def test_lane_kernels(cuda, n_ch):
@@ -322,8 +389,15 @@ def test_lane_sums_e_kernel_adversarial(cuda, n_ch, max_cells):
         (np.uint8, 2, (40, 56), (97, 71)),         # upsampling
         (np.uint16, 1, (1000, 900), (30, 25)),     # windows wider than one staged chunk
         (np.float32, 2, (333, 250), (160, 121)),
+        (np.float32, 1, (2000, 1800), (40, 60)),   # f32 windows taller than a ring buffer
+        (np.uint8, 2, (300, 260), (150, 130)),     # down by 2, uint8
+        (np.float32, 2, (120, 100), (240, 200)),   # up by 2, f32
+        (np.uint16, 3, (37, 23), (19, 50)),        # smaller than one tile, odd pitch
+        (np.uint16, 400, (64, 64), (32, 32)),      # more tiles than the persistent CTAs
+        (np.uint8, 1, (97, 61), (13, 7)),          # odd pitch, uint8
     ],
-    ids=["down2", "odd", "up-u8", "down33", "f32"],
+    ids=["down2", "odd", "up-u8", "down33", "f32", "down50-f32", "down2-u8", "up2-f32",
+         "small", "many", "odd-u8"],
 )
 def test_lanczos_kernel(cuda, dtype, batch, in_shape, out_shape):
     """K7: the f32 sums to 1e-5 of each output's sum of |w * x|; integer

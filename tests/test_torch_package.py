@@ -147,8 +147,7 @@ def test_entry_point_without_device_raises_when_cuda_absent(monkeypatch, entry):
 def _cpu_wrapper_calls():
     from saguaro_tpu_torch.kernels.resample_cuda import lanczos_resize_cuda
 
-    start, n, w = (torch.as_tensor(a) for a in resample.axis_windows(8, 4))
-    axis = (start, n, w)
+    bands = tuple(torch.as_tensor(a) for a in resample.axis_bands(8, 4))
     lab = torch.zeros((1, 8), dtype=torch.int32)
     img = torch.zeros((1, 4, 2, 1))
     lab3 = torch.zeros((1, 4, 2), dtype=torch.int32)
@@ -172,7 +171,7 @@ def _cpu_wrapper_calls():
             torch.zeros((1, 1, 256, 256, 1)),
         ),
         "lanczos_resize": lambda: lanczos_resize_cuda(
-            torch.zeros((1, 8, 6), dtype=torch.uint16), axis, axis
+            torch.zeros((1, 8, 6), dtype=torch.uint16), bands, bands, None, (4, 4)
         ),
     }
 

@@ -1,8 +1,10 @@
 """Segment half of the engine: the port's SegmentEmbedEngine.segment_batch
-against the reference engine's, with the same CPnet weights (bridged from
-the reference's flax tree) in f32 on both sides. Flow differences of
-~1e-5 can move a rounded flow step only at exact half-pixel ties, so the
-labels are compared exactly; the embed half is refused."""
+and single-site segment against the reference engine's, with the same
+CPnet weights (bridged from the reference's flax tree) in f32 on both
+sides. Flow differences of ~1e-5 can move a rounded flow step only at
+exact half-pixel ties, and the Euler steps of the single-site path are
+summed as the reference sums them, so the labels are compared exactly;
+the embed half is refused."""
 
 import numpy as np
 import pytest
@@ -79,9 +81,41 @@ def test_flow_qc_drops_the_same_masks(engines, monkeypatch):
         np.testing.assert_array_equal(g, w)
 
 
-def test_single_site_segment_is_batch_of_one(engines, images):
-    _, port = engines
-    np.testing.assert_array_equal(port.segment(images[0]), port.segment_batch(images[:1])[0].numpy())
+def _hold_segment(ref, port, images, monkeypatch, flow_error_threshold, fill_holes):
+    for eng in (ref, port):
+        monkeypatch.setattr(eng.cfg, "flow_error_threshold", flow_error_threshold)
+        monkeypatch.setattr(eng.cfg, "fill_holes", fill_holes)
+    found = []
+    for image in images:
+        want = ref.segment(image)
+        got = port.segment(image)
+        assert isinstance(got, np.ndarray) and got.dtype == want.dtype == np.int32
+        np.testing.assert_array_equal(got, want)
+        found.append(int(want.max()))
+    return found
+
+
+def test_single_site_segment_is_batch_of_one(engines, images, monkeypatch):
+    """The single-site path (Euler recovery at the network resolution,
+    the nearest upsample, hole filling, the min-size filter) against the
+    reference engine's segment, at the fixture's settings: no flow QC,
+    holes filled."""
+    ref, port = engines
+    assert sum(_hold_segment(ref, port, images, monkeypatch, None, True)) >= 3
+
+
+@pytest.mark.parametrize("flow_error_threshold,fill_holes", [(24.0, True), (24.0, False), (None, False)])
+def test_single_site_segment_matches_reference(engines, images, monkeypatch, flow_error_threshold,
+                                               fill_holes):
+    """As above with the flow-error QC on and holes left open. The random
+    net's masks score flow errors of 23-36, so a threshold of 24 drops
+    some of them and keeps others."""
+    ref, port = engines
+    found = _hold_segment(ref, port, images, monkeypatch, flow_error_threshold, fill_holes)
+    assert sum(found) >= 3
+    if flow_error_threshold is not None:
+        monkeypatch.setattr(port.cfg, "flow_error_threshold", None)
+        assert sum(int(port.segment(i).max()) for i in images) > sum(found)
 
 
 def test_embed_half_refused(engines):

@@ -66,7 +66,7 @@ PLANS = {
 
 
 def _nvcc(out: Path, sources: list[Path]) -> subprocess.Popen:
-    cmd = [sc._nvcc(), *sc._NVCC_FLAGS, "-o", str(out / "lib.so"), *map(str, sources)]
+    cmd = [sc._nvcc(), *sc._NVCC_FLAGS, "-shared", "-o", str(out / "lib.so"), *map(str, sources)]
     return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
 
 

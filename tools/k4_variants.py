@@ -71,8 +71,8 @@ def build(names: list[str]) -> dict[str, ctypes.CDLL]:
         (out / "lane_sums.cu").write_text(text)
         for f in ("common.cuh", "errors.cu"):
             (out / f).write_text((CSRC / f).read_text())
-        cmd = [sc._nvcc(), *sc._NVCC_FLAGS, "-o", str(out / "lib.so"), str(out / "lane_sums.cu"),
-               str(out / "errors.cu")]
+        cmd = [sc._nvcc(), *sc._NVCC_FLAGS, "-shared", "-o", str(out / "lib.so"),
+               str(out / "lane_sums.cu"), str(out / "errors.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                         text=True), time.perf_counter())
     libs = {}
