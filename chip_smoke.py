@@ -9,9 +9,11 @@ at the feature-extraction path's (8 sites of 1080 x 1080, 5 channels,
 max_cells=512; K1 and K3 at each of their call sites there, with the
 inputs one measurement gives them), K7 at the pixel path's (16 raw 2160 x
 2160 uint16 fields re-binned to 1080 x 1080, plus f32 input, an
-upsampling and an odd non-square case). K3 and K7 are also timed bare:
-their C calls alone, back to back, with plans, tables and outputs made
-beforehand. Then it drives the paths end to end through the user-facing
+upsampling and an odd non-square case; K5 also on 8 sparse sites, of 4
+small objects each). K3, K4 radial, K5 and K7 are also timed bare: their
+C calls alone, back to back, with plans, tables and outputs made
+beforehand. K5's operations are counted from the steps of dx its inputs
+need, whose mean it logs. Then it drives the paths end to end through the user-facing
 entry points. Feature extraction: the full-width CPnet segmentation
 engine on 8 synthetic uint16 sites, mask recovery on ground-truth flows
 (untrained weights find no cells), ``measure_site_batch`` at the
@@ -26,9 +28,9 @@ fails unless each path launched every kernel it runs (K1's and K3's
 launches are logged by call site, with each site's shape), and prints one
 JSON line of per-kernel numbers, the card's name and power limit, and
 last ``{"ok": true, "device": {...}}``. Before that it logs the build's
-seconds, the compiler's registers, spills and shared memory of K1, K3, K7
-and every K4 run kernel (it fails if one spills), their resident blocks a
-SM and the K1, K3 and K7 plans at each shape, and it holds K4 passes A, C
+seconds, the compiler's registers, spills and shared memory of K1, K3, K5,
+K7 and every K4 kernel (it fails if one spills), their resident blocks a
+SM and the K1, K3, K4 radial, K5 and K7 plans at each shape, and it holds K4 passes A, C
 and E against their plain forms on small adversarial sites
 (``tests/torch_data.adversarial_lane_sites``): every lane group, 1, 5 and
 8 channels (E: 2, 5 and 8), max_cells 16 and 1024. Without a CUDA device,
@@ -110,6 +112,20 @@ def synthetic_sites(n_sites: int, size: int, seed: int):
                 img[nuc, 0] += np.uint16(rng.integers(1500, 2500))
                 img[nuc] += rng.integers(0, 200, (int(nuc.sum()), n_ch)).astype(np.uint16)
     return images, labels
+
+
+def sparse_sites(n_sites: int, size: int, seed: int):
+    """(B, size, size) int32 labels of sparse sites, as empty or failed
+    wells give them: 4 small round objects (radius 4-9) at seeded places
+    on an otherwise empty field, so that most rows hold one label."""
+    rng = np.random.default_rng(seed)
+    labels = np.zeros((n_sites, size, size), np.int32)
+    yy, xx = np.mgrid[:size, :size]
+    for s in range(n_sites):
+        for k in range(1, 5):
+            cy, cx = rng.integers(20, size - 20, 2)
+            labels[s][(yy - cy) ** 2 + (xx - cx) ** 2 <= rng.uniform(4, 9) ** 2] = k
+    return labels
 
 
 def time_ms(fn, reps: int) -> float:
@@ -213,17 +229,20 @@ def demangle(names: list[str]) -> list[str]:
 
 
 def log_resources(build_log: str) -> None:
-    """Logs the compiler's report of K1's, K3's and K7's kernels and of
-    every K4 run kernel instantiation (passes A, C and E), K3's resident
-    CTAs a SM at the main path's tables and the K4 run kernels' at 5 and 8
-    channels (K7's come with its plans); fails if any of them spills."""
+    """Logs the compiler's report of K1's, K3's, K5's and K7's kernels and
+    of every K4 kernel instantiation (passes A, C and E, the radial
+    lanes), K5's and K4 radial's resources at the main path's shapes, K3's
+    resident CTAs a SM at the main path's tables and the K4 run kernels'
+    at 5 and 8 channels (K7's come with its plans); fails if any of them
+    spills."""
     from saguaro_tpu_torch.kernels import segment_cuda as sc
 
-    names = ("sag_lanes", "sag_counts", "sag_sums", "sag_lanczos")
+    names = ("sag_lanes", "sag_counts", "sag_sums", "sag_lanczos", "sag_radial", "sag_edt_sweep")
     rep = [k for k in ptxas_report(build_log) if any(n in k["name"] for n in names)]
-    kinds = ("lanes_a", "lanes_c", "counts", "sums", "lanczos")
+    kinds = ("lanes_a", "lanes_c", "counts", "sums", "lanczos", "radial", "edt_sweep")
     if not all(any(f"sag_{p}_kernel" in k["name"] for k in rep) for p in kinds):
-        raise AssertionError("the build log has no ptxas report of the K1, K3, K4 A/C or K7 kernels")
+        raise AssertionError("the build log has no ptxas report of the K1, K3, K4 A/C/radial, K5 "
+                             "or K7 kernels")
     spilled = []
     for k, name in zip(rep, demangle([k["name"] for k in rep])):
         log(f"ptxas {name}: {k['registers']} registers, {k['spill_stores']} B spill stores, "
@@ -231,7 +250,13 @@ def log_resources(build_log: str) -> None:
         if k["spill_stores"] + k["spill_loads"] > 0:
             spilled.append(name)
     if spilled:
-        raise AssertionError(f"K1, K3, K4 pass A/C/E or K7 kernels spill registers: {spilled}")
+        raise AssertionError(f"K1, K3, K4 pass A/C/E/radial, K5 or K7 kernels spill registers: "
+                             f"{spilled}")
+    for vec in (True, False):
+        log(f"K5 at rows of {SIZE}, radius 64, {'16' if vec else '4'}-byte form: "
+            + json.dumps(sc.edt_kernel_info(SIZE, 64, vec)))
+    for n_ch in (1, 5, 8):
+        log(f"K4 radial n_ch={n_ch}: " + json.dumps(sc.radial_kernel_info(n_ch)))
     for width in (1, 2):
         log(f"K3 width {width}, max_cells {MAX_CELLS}: "
             + json.dumps(sc.sums_kernel_info(width, MAX_CELLS)))
@@ -400,17 +425,20 @@ def check_kernels(images, labels, dev):
           n_ops=ops_c, counter="seg_lane_sums_c")
     del want, got, pw, bnd
 
-    check_family_kernels(img, lab, seg, entry)
+    check_family_kernels(img, lab, seg, entry, out)
     del img, lab, seg
     check_resample(dev, entry)
     return out, counters
 
 
-def check_family_kernels(img, lab, seg, entry):
+def check_family_kernels(img, lab, seg, entry, entries):
     """K5, K4 radial, K6 and K4 pass E on the inputs the default
     FeatureConfig's families give them at the main path's shapes: the
     nuclei and, for the rank pick, the three object sets (cells grown 8
-    rings over the cell-body channels)."""
+    rings over the cell-body channels). K5 also on sparse sites, timed
+    bare and through the wrapper; K5 and K4 radial are timed bare beside
+    the wrapper. ``entries``: the kernel rows ``entry`` writes, which K5
+    and K4 radial add their own numbers to."""
     import torch
 
     from saguaro_tpu_torch.kernels import colocalization as coloc
@@ -428,19 +456,36 @@ def check_family_kernels(img, lab, seg, entry):
     idx = seg.long()[..., None].expand(b, n, n_ch)
     vmax = torch.full((b, MAX_CELLS, n_ch), -big, device=dev).scatter_reduce_(1, idx, vr, "amax")
 
-    # K5: the EDT sweep of the nuclei at the default max_radius
+    # K5: the EDT sweep of the nuclei at the default max_radius, and of
+    # sparse sites (empty or failed wells: most rows hold one label)
     radius = 64
-    v2, d2 = (t.contiguous() for t in _edt_sweep_inputs(lab))
-    got = sc.seg_edt_sweep(v2, d2, radius)
-    torch.cuda.synchronize()
-    if not torch.equal(got, sc.edt_sweep_plain(v2, d2, radius)):
-        raise AssertionError("K5 EDT sweep differs from the plain form")
-    # per pixel: read v2 and d2, write one float; 2R candidates of a min,
-    # an add and a min
+    sparse = torch.as_tensor(sparse_sites(b, h, seed=3), device=dev)
+    steps = {}
+    for name, labels in (("sparse", sparse), ("nuclei", lab)):
+        v2, d2 = (t.contiguous() for t in _edt_sweep_inputs(labels))
+        got = sc.seg_edt_sweep(v2, d2, radius)
+        torch.cuda.synchronize()
+        if not torch.equal(got, sc.edt_sweep_plain(v2, d2, radius)):
+            raise AssertionError(f"K5 EDT sweep of the {name} sites differs from the plain form")
+        steps[name] = edt_steps(got, radius)
+        log(f"K5 {name} {(b, h, w)}, R {radius}: equal to the plain form; the inputs need "
+            f"{float(steps[name].mean()):.3f} steps of dx a pixel on average (of {radius})")
+        if name == "sparse":
+            call, _ = edt_bare(v2, d2, radius)
+            sparse_ms = {"sparse_bare_ms": time_launches_ms(call),
+                         "sparse_ms": time_ms(lambda: sc.seg_edt_sweep(v2, d2, radius), 10)}
+            log(f"K5 sparse: bare {sparse_ms['sparse_bare_ms']:.4f} ms, wrapper "
+                f"{sparse_ms['sparse_ms']:.4f} ms")
+    del sparse
+    # per pixel: read v2 and d2, write one float; each step of dx these
+    # inputs need is a min, an add and a min
     entry("seg_edt_sweep", "saguaro_tpu_torch/csrc/edt_sweep.cu", f"{PALLAS}:728", 0.0,
           lambda: sc.seg_edt_sweep(v2, d2, radius), lambda: sc.edt_sweep_plain(v2, d2, radius),
-          n_bytes=12.0 * b * n, n_ops=3.0 * radius * b * n)
-    del v2, d2, got
+          n_bytes=12.0 * b * n, n_ops=3.0 * float(steps["nuclei"].sum()),
+          bare=edt_bare(v2, d2, radius)[0])
+    entries["seg_edt_sweep"].update(sparse_ms, mean_steps=float(steps["nuclei"].mean()),
+                                    sparse_mean_steps=float(steps["sparse"].mean()))
+    del v2, d2, got, steps
 
     # K4 radial: the nuclei's CP ring/wedge codes (4 rings x 8 wedges)
     flat = lab.reshape(b, n).contiguous()
@@ -461,12 +506,22 @@ def check_family_kernels(img, lab, seg, entry):
                         + torch.where(raw < MAX_CELLS, raw, 0) * n_codes + code, r_size).reshape(-1)
     r_vals = torch.cat([torch.ones((b, n, 1), device=dev), vr], dim=2).reshape(b * n, 1 + n_ch)
     r_acc = torch.zeros((r_size + 1, 1 + n_ch), device=dev)
+    # runs: active pixels whose key differs from the previous pixel's
+    r_flat = r_key.view(b, n)
+    runs = int((act & torch.cat([torch.ones_like(act[:, :1]), r_flat[:, 1:] != r_flat[:, :-1]],
+                                dim=1)).sum())
+    log(f"K4 radial: {float(act.float().mean()):.4f} of the pixels in a bin, {runs} runs of "
+        f"equal (label, bin) keys, {runs / b:.0f} a site")
+    # the bytes these inputs need: every label and code, the values of the
+    # pixels in a bin, the table written once
     entry("seg_radial_sums", "saguaro_tpu_torch/csrc/radial_sums.cu", f"{PALLAS}:608", err_r,
           lambda: sc.seg_radial_sums(*args_r), lambda: sc.radial_sums_plain(*args_r),
-          n_bytes=b * n * (8.0 + 4.0 * n_ch) + 4.0 * r_size * (1 + n_ch),
+          n_bytes=8.0 * b * n + 4.0 * n_ch * float(act.sum()) + 4.0 * r_size * (1 + n_ch),
           n_ops=float(act.sum()) * (1 + n_ch),
-          library=lambda: r_acc.index_add_(0, r_key, r_vals))
-    del got, want, rw, r_key, r_vals, r_acc, act, raw, code
+          library=lambda: r_acc.index_add_(0, r_key, r_vals),
+          bare=radial_bare(*args_r)[0])
+    entries["seg_radial_sums"]["runs"] = runs
+    del got, want, rw, r_key, r_vals, r_acc, act, raw, code, r_flat
 
     # K6: dense-rank tables of the three object sets, as colocalization
     # builds them (uint16 codes split into bytes, Cells = Nuclei + Cytoplasm)
@@ -707,6 +762,59 @@ def sums_bare(labels, values, max_cells):
 
     log(f"K3 plan at {(b, n, k)}, max_cells {max_cells}: {plan}")
     return call
+
+
+def edt_bare(v2, d2, radius):
+    """K5's launch as the C call alone, into an output made beforehand:
+    (call, output)."""
+    import torch
+
+    from saguaro_tpu_torch.kernels import segment_cuda as sc
+
+    b, h, w = v2.shape
+    out = torch.empty_like(v2)
+    args = (v2.data_ptr(), d2.data_ptr(), out.data_ptr(), b, h, w, radius)
+    fn = sc._lib().sag_edt_sweep
+    log(f"K5 geometry at {(b, h, w)}, radius {radius}: {sc.edt_geometry(w, radius)}")
+
+    def call():
+        if fn(*args, torch.cuda.current_stream(v2.device).cuda_stream) != 0:
+            raise RuntimeError("sag_edt_sweep failed")
+
+    return call, out
+
+
+def radial_bare(labels, codes, image, max_cells, n_codes):
+    """K4 radial's launch as the C call alone, with its plan and a
+    zero-filled output made beforehand (timing only: the sums pile up over
+    the calls): (call, output)."""
+    import torch
+
+    from saguaro_tpu_torch.kernels import segment_cuda as sc
+
+    dev = labels.device
+    b, n = labels.shape
+    n_ch = image.shape[2]
+    plan = sc.radial_card_plan(b, n, n_ch, dev)
+    out = torch.zeros((b, max_cells, n_codes, 1 + n_ch), dtype=torch.float32, device=dev)
+    args, keep = sc.radial_args(labels, codes, image, out, plan)
+    fn = sc._lib().sag_radial_sums
+    log(f"K4 radial plan at {(b, n, n_ch)}, max_cells {max_cells}, {n_codes} bins: {plan}")
+
+    def call(keep=keep):
+        if fn(*args, torch.cuda.current_stream(dev).cuda_stream) != 0:
+            raise RuntimeError("sag_radial_sums failed")
+
+    return call, out
+
+
+def edt_steps(out, radius):
+    """Per pixel, the steps of dx the sweep needs on these inputs: the dx
+    in 1..radius with dx^2 < out (all of them where out is NaN)."""
+    import torch
+
+    need = torch.ceil(torch.sqrt(out.double().clamp(min=0.0))) - 1.0
+    return torch.where(out.isnan(), float(radius), need.clamp(0.0, float(radius)))
 
 
 def check_sums_shapes(rec, dev, entry):
@@ -1241,10 +1349,30 @@ def profile_stages(images, gt_labels, dev, top: int = 20) -> None:
         def n_kernels(ev):
             return len(ev.kernels) + sum(n_kernels(c) for c in ev.cpu_children)
 
+        def n_port(ev):  # the port's own kernels (csrc/*.cu) launched within
+            return (sum("sag_" in k.name for k in ev.kernels)
+                    + sum(n_port(c) for c in ev.cpu_children))
+
+        def outermost(ev):
+            p = ev.cpu_parent
+            while p is not None:
+                if p.name.startswith("measure/"):
+                    return False
+                p = p.cpu_parent
+            return True
+
         launched: dict[str, int] = {}
+        port_inside = 0
         for ev in prof.events():
             if ev.name.startswith("measure/") and ev.device_type == DeviceType.CPU:
                 launched[ev.name] = launched.get(ev.name, 0) + n_kernels(ev)
+                if outermost(ev):
+                    port_inside += n_port(ev)
+        port_all = sum(e.count for e in kernels if "sag_" in e.key)
+        if name == "measure":
+            # do the ctypes launches land in the family ranges that enclose them?
+            log(f"  the port's kernels: {port_all} launched, {port_inside} of them inside a "
+                "measure/<family> range")
         for e in sorted(host, key=lambda e: e.cpu_time_total, reverse=True):
             log(f"  range {e.key:24s} {e.count:3d} calls  {e.cpu_time_total / 1e3:10.3f} ms host  "
                 f"{e.device_time_total / 1e3:10.3f} ms kernels  "

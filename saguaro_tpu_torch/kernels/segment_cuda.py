@@ -73,8 +73,15 @@ __all__ = [
     "lane_sums_e_plain",
     "seg_radial_sums",
     "radial_sums_plain",
+    "radial_plan",
+    "radial_card_plan",
+    "RadialPlan",
+    "radial_kernel_info",
     "seg_edt_sweep",
     "edt_sweep_plain",
+    "edt_geometry",
+    "EdtGeometry",
+    "edt_kernel_info",
     "seg_pick2",
     "pick2_plain",
     "n_lanes_a",
@@ -181,8 +188,10 @@ SIGNATURES = {
     "sag_lanes_c": (_P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     "sag_lanes_e": (_P, _P, _P, _P, _P, _P, _I, _LL, _I, _I, _I, _P),
     "sag_lanes_info": (_I, _I, _I, _P),
-    "sag_radial_sums": (_P, _P, _P, _P, _I, _LL, _I, _I, _I, _P),
+    "sag_radial_sums": (_P, _P, _P, _P, _I, _LL, _I, _I, _I, _I, _LL, _P),
+    "sag_radial_info": (_I, _P),
     "sag_edt_sweep": (_P, _P, _P, _I, _I, _I, _I, _P),
+    "sag_edt_sweep_info": (_I, _I, _I, _P),
     "sag_pick2": (_P, _P, _P, _P, _I, _LL, _I, _I, _P),
     "sag_lanczos": (_P, _I, _P, _P, _P, _I, _I, _P, _P, _I, _I, _P, _P) + (_I,) * 9 + (_P,),
     "sag_lanczos_info": (_I, _I, _I, _P),
@@ -966,6 +975,63 @@ def lane_sums_e_plain(
 # ---------------------------------------------------------------------------
 # K4, radial lanes: per-(label, ring/wedge bin) counts and channel sums
 
+# K4 radial's launch plan (csrc/radial_sums.cu): like K3's, about one wave
+# of CTAs, each over a contiguous range of a site's 16-byte vectors of 4
+# pixels; a site's ragged head and tail go to its first CTA.
+K4R_THREADS = 256               # K4R_THREADS in radial_sums.cu
+K4R_UNROLL = 2                  # K4R_UNROLL in radial_sums.cu
+K4R_MIN_VECS = K4R_THREADS * K4R_UNROLL  # vectors a CTA takes at least: one iteration
+
+
+@dataclass(frozen=True)
+class RadialPlan:
+    """K4 radial's launch plan: ``ctas`` CTAs a site, each over ``vecs``
+    16-byte vectors of the site's aligned pixels (the ragged head and tail
+    of a site, at most 3 pixels each, go to its first CTA)."""
+
+    ctas: int
+    vecs: int
+
+
+def radial_plan(batch: int, n: int, resident: int) -> RadialPlan:
+    """K4 radial's plan for (batch, n) pixels, given the card's
+    ``resident`` CTAs (SMs x CTAs a SM): about one wave of CTAs over the
+    batch, each taking at least K4R_MIN_VECS vectors."""
+    if batch < 1 or batch > 65535 or n < 0:
+        raise ValueError(f"K4 radial takes 1..65535 sites of n >= 0 pixels (got {batch}, {n})")
+    n_vec = n // 4  # no fewer than any site's aligned vectors
+    ctas = max(1, min(-(-max(resident, 1) // batch), -(-n_vec // K4R_MIN_VECS)))
+    return RadialPlan(ctas, -(-n_vec // ctas))
+
+
+@lru_cache(maxsize=None)
+def radial_kernel_info(n_ch: int) -> dict[str, int]:
+    """Resources of K4 radial's ``n_ch``-channel kernel on the current card:
+    registers and local (spilled) bytes a thread, resident CTAs a SM."""
+    info = (ctypes.c_int * 3)()
+    rc = _lib().sag_radial_info(n_ch, info)
+    if rc != 0:
+        raise RuntimeError(f"sag_radial_info failed: CUDA error {rc}")
+    return dict(zip(("registers", "local_bytes", "ctas_per_sm"), info))
+
+
+@lru_cache(maxsize=64)
+def radial_card_plan(batch: int, n: int, n_ch: int, device: torch.device) -> RadialPlan:
+    """``radial_plan`` for ``device``'s SMs and the kernel's residency."""
+    per_sm = radial_kernel_info(n_ch)["ctas_per_sm"]
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return radial_plan(batch, n, sms * per_sm)
+
+
+def radial_args(labels, codes, image, out, plan: RadialPlan) -> tuple[tuple, tuple]:
+    """The ``sag_radial_sums`` arguments (without the stream) and the
+    16-byte aligned tensors they point into, which must outlive them."""
+    b, n = labels.shape
+    labels, codes, image = _aligned(labels), _aligned(codes), _aligned(image)
+    return ((labels.data_ptr(), codes.data_ptr(), image.data_ptr(), out.data_ptr(), b, n,
+             image.shape[2], out.shape[1], out.shape[2], plan.ctas, plan.vecs),
+            (labels, codes, image))
+
 
 def seg_radial_sums(
     labels: torch.Tensor, codes: torch.Tensor, image: torch.Tensor, max_cells: int, n_codes: int
@@ -974,7 +1040,7 @@ def seg_radial_sums(
     codes (B, N) int32 packed bins ring*8 + wedge (a code outside
     [0, n_codes) is excluded), image (B, N, C) f32 -> (B, max_cells,
     n_codes, 1 + C) f32: per (label, bin) the pixel count and the channel
-    sums of the labelled pixels."""
+    sums of the labelled pixels, one launch of ``radial_plan``."""
     _check(labels, "labels", torch.int32, 2)
     _check(codes, "codes", torch.int32, 2)
     _check(image, "image", torch.float32, 3)
@@ -984,12 +1050,13 @@ def seg_radial_sums(
         raise ValueError("labels, codes and image must share (B, N)")
     if not 1 <= n_ch <= _MAX_CH:
         raise ValueError(f"the radial kernel takes 1..{_MAX_CH} channels, got {n_ch}")
-    out = torch.zeros((b, max_cells, n_codes, 1 + n_ch), dtype=torch.float32, device=labels.device)
-    _launch(
-        "sag_radial_sums", "seg_radial_sums", labels.device,
-        labels.data_ptr(), codes.data_ptr(), image.data_ptr(), out.data_ptr(),
-        b, n, n_ch, max_cells, n_codes,
-    )
+    if max_cells < 1 or n_codes < 1:
+        raise ValueError(f"K4 radial needs max_cells and n_codes >= 1: {max_cells}, {n_codes}")
+    dev = labels.device
+    plan = radial_card_plan(b, n, n_ch, dev)
+    out = torch.zeros((b, max_cells, n_codes, 1 + n_ch), dtype=torch.float32, device=dev)
+    args, _keep = radial_args(labels, codes, image, out, plan)
+    _launch("sag_radial_sums", "seg_radial_sums", dev, *args)
     return out
 
 
@@ -1015,18 +1082,74 @@ def radial_sums_plain(labels, codes, image, max_cells, n_codes, dtype=torch.floa
 # ---------------------------------------------------------------------------
 # K5: bounded horizontal EDT sweep
 
+# K5's row geometry (csrc/edt_sweep.cu): one warp a row, its groups of
+# K5_P consecutive outputs handed to the lanes as a queue, K5_S steps of dx
+# a block; the row of v2 staged in shared memory with a halo of the radius
+# rounded up to K5_S and one minimum a K5_BLOCK values, the row of d2, and
+# each group's bound.
+K5_P = 8                        # K5_P in edt_sweep.cu
+K5_S = 8                        # K5_S
+K5_BLOCK = 32                   # K5_BLOCK
+K5_WARPS = 4                    # K5_WARPS: rows a CTA at most
+K5_SMEM_MAX = 232448            # K5_SMEM_MAX: dynamic shared bytes a CTA
+
+
+@dataclass(frozen=True)
+class EdtGeometry:
+    """K5's geometry for rows of ``w`` pixels: ``reff`` steps of dx (the
+    radius, at most w - 1: steps past the row only meet +inf), a halo of
+    ``kp`` (reff rounded up to K5_S), ``wp`` staged floats of d2 a row (w
+    rounded up to K5_P), ``span`` staged floats of v2 a row (wp and both
+    halos, rounded up to 32), ``warps`` rows a CTA and ``smem`` dynamic
+    shared bytes a CTA."""
+
+    reff: int
+    kp: int
+    wp: int
+    span: int
+    warps: int
+    smem: int
+
+
+def edt_geometry(w: int, radius: int) -> EdtGeometry:
+    """K5's geometry for rows of ``w`` pixels; raises ValueError where one
+    staged row exceeds a CTA's shared memory."""
+    if radius < 0 or w < 1:
+        raise ValueError(f"K5 needs radius >= 0 and w >= 1 (got {radius}, {w})")
+    reff = min(radius, w - 1)
+    kp = -(-reff // K5_S) * K5_S
+    wp = -(-w // K5_P) * K5_P
+    span = -(-(wp + 2 * kp) // 32) * 32
+    per_warp = 4 * (span + wp + span // K5_BLOCK + wp // K5_P)
+    if per_warp > K5_SMEM_MAX:
+        raise ValueError(f"a row of {w} pixels with radius {radius} exceeds shared memory")
+    warps = min(K5_WARPS, K5_SMEM_MAX // per_warp)
+    return EdtGeometry(reff, kp, wp, span, warps, warps * per_warp)
+
+
+@lru_cache(maxsize=None)
+def edt_kernel_info(w: int, radius: int, vec: bool = True) -> dict[str, int]:
+    """Resources of K5's kernel (``vec``: its 16-byte form) for rows of
+    ``w`` pixels at ``radius`` on the current card: registers and local
+    (spilled) bytes a thread, dynamic shared bytes and resident CTAs a SM,
+    warps (rows) a CTA."""
+    info = (ctypes.c_int * 5)()
+    rc = _lib().sag_edt_sweep_info(int(vec), w, radius, info)
+    if rc != 0:
+        raise RuntimeError(f"sag_edt_sweep_info failed: CUDA error {rc}")
+    return dict(zip(("registers", "local_bytes", "smem", "ctas_per_sm", "warps"), info))
+
 
 def seg_edt_sweep(v2: torch.Tensor, d2_init: torch.Tensor, max_radius: int) -> torch.Tensor:
     """v2, d2_init (B, H, W) f32 -> (B, H, W) f32: ``min(d2_init,
     min_{1 <= |dx| <= R} v2[row, col + dx] + dx**2)``, candidates outside
-    the row read as +inf. Exact."""
+    the row read as +inf, NaN kept. Exact."""
     _check(v2, "v2", torch.float32, 3)
     _check(d2_init, "d2_init", torch.float32, 3)
     if v2.shape != d2_init.shape:
         raise ValueError(f"v2 {tuple(v2.shape)} and d2_init {tuple(d2_init.shape)} differ")
     b, h, w = v2.shape
-    if (w + 2 * max_radius) * 4 > 200 * 1024:
-        raise ValueError(f"a row of {w} pixels with radius {max_radius} exceeds shared memory")
+    edt_geometry(w, max_radius)  # raises where a row does not fit
     out = torch.empty_like(v2)
     _launch(
         "sag_edt_sweep", "seg_edt_sweep", v2.device,

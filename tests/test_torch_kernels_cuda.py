@@ -22,10 +22,13 @@ from saguaro_tpu_torch.kernels import segment_cuda as sc
 from saguaro_tpu_torch.kernels.segment_reduce import perimeter_weight_image
 
 from .torch_data import (
+    RADIAL_CASES,
     adversarial_lane_args_a,
     adversarial_lane_args_c,
     adversarial_lane_args_e,
     blob_sites,
+    edt_adversarial_cases,
+    radial_adversarial_site,
 )
 
 
@@ -290,6 +293,37 @@ def test_edt_sweep_kernel_exact(cuda):
         assert torch.equal(got, sc.edt_sweep_plain(v2, d2, radius))
 
 
+def _equal_nan(got, want):
+    """Bit for bit where ``want`` is a number, NaN where it is NaN."""
+    return torch.equal(got.isnan(), want.isnan()) and torch.equal(got.nan_to_num(),
+                                                                   want.nan_to_num())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(edt_adversarial_cases()) + ["unaligned rows"])
+def test_edt_sweep_kernel_adversarial(cuda, case):
+    """K5's 16-byte and 4-byte forms and its early exit on adversarial rows
+    (one label, negative, infinite and NaN values, R = 0, R >= W, W = 1,
+    odd widths and radii, a sparse field, data not 16-byte aligned)."""
+    from saguaro_tpu_torch.kernels.shape_extra import _edt_sweep_inputs
+
+    if case == "unaligned rows":  # w % 4 == 0 but the data start 4 bytes past a boundary
+        rng = np.random.default_rng(12)
+        v2, d2 = (_unaligned(rng.integers(0, 500, (3, 2, 256)).astype(np.float32), cuda)
+                  for _ in range(2))
+        assert v2.data_ptr() % 16 and v2.is_contiguous()
+        radius = 40
+    else:
+        v2, d2, radius = edt_adversarial_cases()[case]
+        if d2 is None:  # labels: the sweep's inputs
+            v2, d2 = (t.contiguous() for t in _edt_sweep_inputs(torch.from_numpy(v2).to(cuda)))
+        else:
+            v2, d2 = torch.from_numpy(v2).to(cuda), torch.from_numpy(d2).to(cuda)
+    got = sc.seg_edt_sweep(v2, d2, radius)
+    torch.cuda.synchronize()
+    assert _equal_nan(got, sc.edt_sweep_plain(v2, d2, radius))
+
+
 @pytest.mark.cuda
 def test_pick2_kernel_exact(cuda):
     rng = np.random.default_rng(8)
@@ -303,7 +337,7 @@ def test_pick2_kernel_exact(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n_ch", [1, 5])
+@pytest.mark.parametrize("n_ch", [1, 2, 3, 4, 5, 6, 7, 8])
 def test_radial_sums_kernel(cuda, n_ch):
     img, lab = blob_sites(n_sites=2, h=120, w=130, n_ch=n_ch, n_cells=30, seed=9, overflow_id=600)
     rng = np.random.default_rng(9)
@@ -316,6 +350,44 @@ def test_radial_sums_kernel(cuda, n_ch):
     want = sc.radial_sums_plain(*args, 512, 32, dtype=torch.float64)
     assert torch.equal(got[..., 0].double(), want[..., 0])  # pixel counts
     assert torch.all((got.double() - want).abs() <= 1e-5 * want.abs() + 1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_ch", [1, 2, 5, 8])
+@pytest.mark.parametrize("case", RADIAL_CASES)
+def test_radial_sums_kernel_adversarial(cuda, case, n_ch):
+    """K4 radial's runs, hand-overs and warp merge on adversarial sites:
+    counts exactly, sums to 1e-5 of their magnitude."""
+    lab, codes, img, mc, n_codes = radial_adversarial_site(case, n_ch)
+    args = [torch.from_numpy(a).to(cuda) for a in (lab, codes, img)]
+    got = sc.seg_radial_sums(*args, mc, n_codes)
+    torch.cuda.synchronize()
+    want = sc.radial_sums_plain(*args, mc, n_codes, dtype=torch.float64)
+    scale = sc.radial_sums_plain(args[0], args[1], args[2].abs(), mc, n_codes, dtype=torch.float64)
+    assert torch.equal(got[..., 0].double(), want[..., 0])
+    assert torch.all((got.double() - want).abs() <= 1e-5 * scale + 1e-6)
+
+
+def _unaligned(a: np.ndarray, dev) -> torch.Tensor:
+    """``a`` on ``dev``, contiguous, its data 4 bytes past a 16-byte boundary."""
+    t = torch.from_numpy(a)
+    flat = torch.zeros(a.size + 1, dtype=t.dtype, device=dev)
+    flat[1:] = t.reshape(-1).to(dev)
+    return flat[1:].view(a.shape)
+
+
+@pytest.mark.cuda
+def test_radial_sums_kernel_unaligned_views(cuda):
+    """Inputs whose data do not start on a 16-byte boundary are copied."""
+    lab, codes, img, mc, n_codes = radial_adversarial_site("runs of 1-9", 5)
+    args = [_unaligned(a, cuda) for a in (lab, codes, img)]
+    assert all(t.data_ptr() % 16 for t in args)
+    got = sc.seg_radial_sums(*args, mc, n_codes)
+    torch.cuda.synchronize()
+    want = sc.radial_sums_plain(*args, mc, n_codes, dtype=torch.float64)
+    scale = sc.radial_sums_plain(args[0], args[1], args[2].abs(), mc, n_codes, dtype=torch.float64)
+    assert torch.equal(got[..., 0].double(), want[..., 0])
+    assert torch.all((got.double() - want).abs() <= 1e-5 * scale + 1e-6)
 
 
 @pytest.mark.cuda

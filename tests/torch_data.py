@@ -238,3 +238,69 @@ def assert_tables_close(ref_tables: dict, port_tables: dict, h: int, w: int) -> 
             tol = feature_tolerance(col, r, ref, h, w)
             bad = ~(np.abs(g - r) <= tol)
             assert not bad.any(), (name, col, r[bad][:3], g[bad][:3], tol[bad][:3])
+
+
+def _edt_rows(seed, shape, lo=0, hi=400):
+    rng = np.random.default_rng(seed)
+    v2 = rng.integers(lo, hi, shape).astype(np.float32)
+    d2 = rng.integers(lo, hi + 600, shape).astype(np.float32)
+    return v2, d2
+
+
+def edt_adversarial_cases() -> dict:
+    """{name: (v2, d2, radius)} f32 (B, H, W) inputs that stress K5's walk
+    and its early exit: rows of one label (1e18), negative and infinite
+    values, NaN in v2 and d2, R = 0, R >= W, W = 1, widths and radii that
+    are not multiples of the outputs a thread owns, rows of more than 32
+    threads, and a sparse field (one small object in an empty one)."""
+    inf_mask = np.random.default_rng(2).random((2, 4, 130)) < 0.3
+    nan_v2, nan_d2 = _edt_rows(3, (1, 4, 140))
+    nan_v2[0, 1, 70] = np.nan
+    nan_d2[0, 2, 5] = np.nan
+    sparse = np.zeros((1, 200, 1080), np.int32)
+    sparse[0, 90:100, 500:510] = 1
+    one = np.full((1, 3, 200), 1e18, np.float32)
+    return {
+        "one label (1e18)": (one, one.copy(), 64),
+        "negative v2": (*_edt_rows(1, (2, 5, 97), lo=-300, hi=300), 20),
+        "inf in v2 and d2": (*(np.where(inf_mask, np.inf, a).astype(np.float32)
+                               for a in _edt_rows(2, (2, 4, 130))), 33),
+        "a NaN": (nan_v2, nan_d2, 17),
+        "R = 0": (*_edt_rows(4, (2, 3, 50)), 0),
+        "R >= W": (*_edt_rows(5, (1, 3, 37)), 64),
+        "R = W - 1": (*_edt_rows(6, (1, 3, 37)), 36),
+        "W = 1": (*_edt_rows(7, (2, 5, 1)), 10),
+        "W not a multiple of P": (*_edt_rows(8, (2, 3, 1001)), 48),
+        "radius not a multiple of P": (*_edt_rows(9, (1, 2, 300)), 13),
+        "more than 32 threads a row": (*_edt_rows(10, (1, 2, 555)), 64),
+        "sparse field": (sparse, None, 64),
+    }
+
+
+def radial_adversarial_site(case: str, n_ch: int, seed: int = 5):
+    """(labels (B, n) int32, codes (B, n) int32, image (B, n, n_ch) f32,
+    max_cells, n_codes) that stress K4 radial's runs and warp merge: all
+    background, one key over every site, runs of 1-9 pixels over every
+    kind of label (negative, 0, in range, >= max_cells) and of code
+    (negative, in range, >= n_codes), and the same with an odd n over 3
+    sites (every site has a ragged head or tail)."""
+    rng = np.random.default_rng(seed)
+    b, n, mc, n_codes = 2, 9_000, 64, 32
+    if case == "odd n, 3 sites":
+        b, n = 3, 4_097
+    lab = np.zeros((b, n), np.int32)
+    codes = rng.integers(0, n_codes, (b, n)).astype(np.int32)
+    if case == "one key":
+        lab[:] = 7
+        codes[:] = 5
+    elif case != "all background":
+        lens = rng.integers(1, 10, n)
+        lab = np.stack([np.repeat(rng.integers(-2, mc + 5, n), lens)[:n]
+                        for _ in range(b)]).astype(np.int32)
+        codes = np.stack([np.repeat(rng.integers(-3, n_codes + 3, n), lens[::-1])[:n]
+                          for _ in range(b)]).astype(np.int32)
+    img = rng.normal(100.0, 50.0, (b, n, n_ch)).astype(np.float32)
+    return lab, codes, img, mc, n_codes
+
+
+RADIAL_CASES = ("all background", "one key", "runs of 1-9", "odd n, 3 sites")
