@@ -10,7 +10,7 @@ max_cells=512; K1 and K3 at each of their call sites there, with the
 inputs one measurement gives them), K7 at the pixel path's (16 raw 2160 x
 2160 uint16 fields re-binned to 1080 x 1080, plus f32 input, an
 upsampling and an odd non-square case; K5 also on 8 sparse sites, of 4
-small objects each). K3, K4 radial, K5 and K7 are also timed bare: their
+small objects each). K3, K4 radial, K5, K6 and K7 are also timed bare: their
 C calls alone, back to back, with plans, tables and outputs made
 beforehand. K5's operations are counted from the steps of dx its inputs
 need, whose mean it logs. Then it drives the paths end to end through the user-facing
@@ -29,8 +29,9 @@ launches are logged by call site, with each site's shape), and prints one
 JSON line of per-kernel numbers, the card's name and power limit, and
 last ``{"ok": true, "device": {...}}``. Before that it logs the build's
 seconds, the compiler's registers, spills and shared memory of K1, K3, K5,
-K7 and every K4 kernel (it fails if one spills), their resident blocks a
-SM and the K1, K3, K4 radial, K5 and K7 plans at each shape, and it holds K4 passes A, C
+K6, K7 and every K4 kernel (it fails if one spills), their resident blocks
+a SM and the K1, K3, K4 radial, K5, K6 and K7 plans at each shape, and it
+holds K4 passes A, C
 and E against their plain forms on small adversarial sites
 (``tests/torch_data.adversarial_lane_sites``): every lane group, 1, 5 and
 8 channels (E: 2, 5 and 8), max_cells 16 and 1024. Without a CUDA device,
@@ -41,9 +42,10 @@ result.
 
 also runs each stage once more, warmed up, under torch.profiler and logs
 its device-busy share, the ops with the most device time and, for measure,
-the host and device time of each family's ``measure/<family>`` range; and
-the pixel path once more, with its device-busy share of the stages' wall
-time.
+the host and device time of each family's ``measure/<family>`` range, the
+port's kernels' share of it apart (it fails unless every one of the port's
+kernels lies inside a range); and the pixel path once more, with its
+device-busy share of the stages' wall time.
 """
 
 from __future__ import annotations
@@ -51,7 +53,6 @@ from __future__ import annotations
 import itertools
 import json
 import logging
-import math
 import os
 import re
 import subprocess
@@ -229,20 +230,21 @@ def demangle(names: list[str]) -> list[str]:
 
 
 def log_resources(build_log: str) -> None:
-    """Logs the compiler's report of K1's, K3's, K5's and K7's kernels and
-    of every K4 kernel instantiation (passes A, C and E, the radial
-    lanes), K5's and K4 radial's resources at the main path's shapes, K3's
-    resident CTAs a SM at the main path's tables and the K4 run kernels'
-    at 5 and 8 channels (K7's come with its plans); fails if any of them
-    spills."""
+    """Logs the compiler's report of K1's, K3's, K5's, K6's and K7's kernels
+    and of every K4 kernel instantiation (passes A, C and E, the radial
+    lanes), K5's and K4 radial's resources at the main path's shapes, K6's
+    at each chunk of sets, K3's resident CTAs a SM at the main path's
+    tables and the K4 run kernels' at 5 and 8 channels (K7's come with its
+    plans); fails if any of them spills."""
     from saguaro_tpu_torch.kernels import segment_cuda as sc
 
-    names = ("sag_lanes", "sag_counts", "sag_sums", "sag_lanczos", "sag_radial", "sag_edt_sweep")
+    names = ("sag_lanes", "sag_counts", "sag_sums", "sag_lanczos", "sag_radial", "sag_edt_sweep",
+             "sag_pick2")
     rep = [k for k in ptxas_report(build_log) if any(n in k["name"] for n in names)]
-    kinds = ("lanes_a", "lanes_c", "counts", "sums", "lanczos", "radial", "edt_sweep")
+    kinds = ("lanes_a", "lanes_c", "counts", "sums", "lanczos", "radial", "edt_sweep", "pick2")
     if not all(any(f"sag_{p}_kernel" in k["name"] for k in rep) for p in kinds):
-        raise AssertionError("the build log has no ptxas report of the K1, K3, K4 A/C/radial, K5 "
-                             "or K7 kernels")
+        raise AssertionError("the build log has no ptxas report of the K1, K3, K4 A/C/radial, K5, "
+                             "K6 or K7 kernels")
     spilled = []
     for k, name in zip(rep, demangle([k["name"] for k in rep])):
         log(f"ptxas {name}: {k['registers']} registers, {k['spill_stores']} B spill stores, "
@@ -250,13 +252,15 @@ def log_resources(build_log: str) -> None:
         if k["spill_stores"] + k["spill_loads"] > 0:
             spilled.append(name)
     if spilled:
-        raise AssertionError(f"K1, K3, K4 pass A/C/E/radial, K5 or K7 kernels spill registers: "
-                             f"{spilled}")
+        raise AssertionError(f"K1, K3, K4 pass A/C/E/radial, K5, K6 or K7 kernels spill "
+                             f"registers: {spilled}")
     for vec in (True, False):
         log(f"K5 at rows of {SIZE}, radius 64, {'16' if vec else '4'}-byte form: "
             + json.dumps(sc.edt_kernel_info(SIZE, 64, vec)))
     for n_ch in (1, 5, 8):
         log(f"K4 radial n_ch={n_ch}: " + json.dumps(sc.radial_kernel_info(n_ch)))
+    for kc in range(1, sc.K6_MAX_KC + 1):
+        log(f"K6 {kc} sets a launch: " + json.dumps(sc.pick2_kernel_info(kc)))
     for width in (1, 2):
         log(f"K3 width {width}, max_cells {MAX_CELLS}: "
             + json.dumps(sc.sums_kernel_info(width, MAX_CELLS)))
@@ -443,7 +447,6 @@ def check_family_kernels(img, lab, seg, entry, entries):
 
     from saguaro_tpu_torch.kernels import colocalization as coloc
     from saguaro_tpu_torch.kernels import segment_cuda as sc
-    from saguaro_tpu_torch.kernels.morphology import expand_labels, tertiary_objects
     from saguaro_tpu_torch.kernels.radial import cp_ring_wedge
     from saguaro_tpu_torch.kernels.shape_extra import _edt_sweep_inputs
 
@@ -524,46 +527,35 @@ def check_family_kernels(img, lab, seg, entry, entries):
     del got, want, rw, r_key, r_vals, r_acc, act, raw, code, r_flat
 
     # K6: dense-rank tables of the three object sets, as colocalization
-    # builds them (uint16 codes split into bytes, Cells = Nuclei + Cytoplasm)
-    body = img[..., 1:].mean(dim=-1)
-    cells = expand_labels(lab, body, 200.0, iterations=8)
-    sets = {"Cells": cells, "Nuclei": lab, "Cytoplasm": tertiary_objects(cells, lab)}
-    flats = {k: v.reshape(b, n).to(torch.int32).contiguous() for k, v in sets.items()}
-    insides = {k: f > 0 for k, f in flats.items()}
-    codes16, norm = coloc._intensity_codes(vr, insides["Cells"] | insides["Nuclei"], True)
-    hi, lo = (codes16 >> 8).contiguous(), (codes16 & 0xFF).contiguous()
-    cnt = coloc._value_count_tables(hi, lo, [insides["Nuclei"], insides["Cytoplasm"]])
-    cnt_by = {"Nuclei": cnt[..., 0], "Cytoplasm": cnt[..., 1]}
-    cnt_by["Cells"] = cnt_by["Nuclei"] + cnt_by["Cytoplasm"]
-    tabs, n_distinct = [], {}
-    for c in range(n_ch):
-        per_set = []
-        for nm in sets:
-            t, nd = coloc._rank_table(cnt_by[nm][:, c])
-            per_set.append(t)
-            n_distinct.setdefault(nm, []).append(nd)
-        tabs.append(torch.stack(per_set, dim=-1))
-    tables = torch.stack(tabs, dim=1).contiguous()  # (B, C, 256, 256, 3)
-    del cnt, cnt_by, tabs, codes16
+    # builds them
+    hi, lo, tables, flats, insides, norm, n_distinct = rank_pick_inputs(img, lab)
     ranks_all = sc.seg_pick2(hi, lo, tables)
     torch.cuda.synchronize()
     if not torch.equal(ranks_all, sc.pick2_plain(hi, lo, tables)):
         raise AssertionError("K6 rank pick differs from the plain form")
     k_sets = tables.shape[4]
+    if not all(ranks_all[..., k].is_contiguous() for k in range(k_sets)):
+        raise AssertionError(f"K6's per-set ranks are not contiguous: strides {ranks_all.stride()}")
+    call, bare_out = pick2_bare(hi, lo, tables)
+    call()
+    torch.cuda.synchronize()
+    if not torch.equal(bare_out, ranks_all):
+        raise AssertionError("K6's bare launch differs from its wrapper")
     flat_t = tables.view(b, n_ch, 65536, k_sets)
     p_idx = hi.long() * 256 + lo.long()
     chan = torch.arange(n_ch, device=dev)[None, None, :]
+    # per item: its two codes read and its K ranks written; the tables read once
     entry("seg_pick2", "saguaro_tpu_torch/csrc/pick2.cu", f"{PALLAS}:824", 0.0,
           lambda: sc.seg_pick2(hi, lo, tables), lambda: sc.pick2_plain(hi, lo, tables),
           n_bytes=b * n * n_ch * (8.0 + 4.0 * k_sets) + 4.0 * tables.numel(), n_ops=0.0,
-          library=lambda: flat_t[site[:, :, None], chan, p_idx])
-    del p_idx, flat_t, hi, lo
+          library=lambda: flat_t[site[:, :, None], chan, p_idx], bare=call)
+    del p_idx, flat_t, hi, lo, bare_out, call
 
-    # K4 pass E over the nuclei: their ranks from K6, Manders thresholds at
-    # 15 % of each object's channel maximum, Costes thresholds of the descent
+    # K4 pass E over the nuclei: their ranks from K6 (the Nuclei set's
+    # plane, contiguous: no copy), Manders thresholds at 15 % of each
+    # object's channel maximum, Costes thresholds of the descent
     pairs = coloc._pairs(n_ch)
-    ranks = ranks_all[..., 1].contiguous()
-    del ranks_all
+    ranks = ranks_all[..., 1]
     thr_f, thr_s = coloc.costes_thresholds(vr / norm[:, None, None], insides["Nuclei"], pairs)
     nd = n_distinct["Nuclei"]
     inv_r = torch.stack([1.0 / torch.clamp(torch.maximum(nd[a], nd[c]), min=1.0)
@@ -583,6 +575,43 @@ def check_family_kernels(img, lab, seg, entry, entries):
           n_bytes=b * n * (4.0 + 8.0 * n_ch) + 4.0 * b * MAX_CELLS * (n_ch + nl_e),
           n_ops=float(insides["Nuclei"].sum()) * (2 * nl_e + 6 * len(pairs) + n_ch),
           counter="seg_lane_sums_e")
+
+
+def rank_pick_inputs(img, lab):
+    """K6's inputs at the main path's shapes, as colocalization builds them
+    for the three object sets (cells grown 8 rings over the cell-body
+    channels, Cells = Nuclei + Cytoplasm): uint16 codes split into hi and lo
+    bytes (B, N, C) int32 and the dense-rank tables (B, C, 256, 256, 3);
+    with the sets' flat labels and masks, the codes' normaliser and each
+    set's distinct values a channel, which pass E takes."""
+    import torch
+
+    from saguaro_tpu_torch.kernels import colocalization as coloc
+    from saguaro_tpu_torch.kernels.morphology import expand_labels, tertiary_objects
+
+    b, h, w, n_ch = img.shape
+    n = h * w
+    vr = img.reshape(b, n, n_ch)
+    body = img[..., 1:].mean(dim=-1)
+    cells = expand_labels(lab, body, 200.0, iterations=8)
+    sets = {"Cells": cells, "Nuclei": lab, "Cytoplasm": tertiary_objects(cells, lab)}
+    flats = {k: v.reshape(b, n).to(torch.int32).contiguous() for k, v in sets.items()}
+    insides = {k: f > 0 for k, f in flats.items()}
+    codes16, norm = coloc._intensity_codes(vr, insides["Cells"] | insides["Nuclei"], True)
+    hi, lo = (codes16 >> 8).contiguous(), (codes16 & 0xFF).contiguous()
+    cnt = coloc._value_count_tables(hi, lo, [insides["Nuclei"], insides["Cytoplasm"]])
+    cnt_by = {"Nuclei": cnt[..., 0], "Cytoplasm": cnt[..., 1]}
+    cnt_by["Cells"] = cnt_by["Nuclei"] + cnt_by["Cytoplasm"]
+    tabs, n_distinct = [], {}
+    for c in range(n_ch):
+        per_set = []
+        for nm in sets:
+            t, nd = coloc._rank_table(cnt_by[nm][:, c])
+            per_set.append(t)
+            n_distinct.setdefault(nm, []).append(nd)
+        tabs.append(torch.stack(per_set, dim=-1))
+    tables = torch.stack(tabs, dim=1).contiguous()  # (B, C, 256, 256, 3)
+    return hi, lo, tables, flats, insides, norm, n_distinct
 
 
 # K1's call sites on the main path (file, function) and the names of their
@@ -804,6 +833,30 @@ def radial_bare(labels, codes, image, max_cells, n_codes):
     def call(keep=keep):
         if fn(*args, torch.cuda.current_stream(dev).cuda_stream) != 0:
             raise RuntimeError("sag_radial_sums failed")
+
+    return call, out
+
+
+def pick2_bare(hi, lo, tables):
+    """K6's launch as the C call alone, with its plan and output made
+    beforehand: (call, output in the wrapper's (B, N, C, K) view)."""
+    import torch
+
+    from saguaro_tpu_torch.kernels import segment_cuda as sc
+
+    dev = hi.device
+    b, n, n_ch = hi.shape
+    k = tables.shape[4]
+    plan = sc.pick2_plan(b, n, n_ch)
+    buf, out = sc.pick2_out(b, n, n_ch, k, dev)
+    args, keep = sc.pick2_args(hi, lo, tables, buf, plan)
+    fn = sc._lib().sag_pick2
+    log(f"K6 plan at {(b, n, n_ch)}, {k} sets: {plan}; "
+        + json.dumps(sc.pick2_kernel_info(min(k, sc.K6_MAX_KC))))
+
+    def call(keep=keep):
+        if fn(*args, torch.cuda.current_stream(dev).cuda_stream) != 0:
+            raise RuntimeError("sag_pick2 failed")
 
     return call, out
 
@@ -1341,43 +1394,72 @@ def profile_stages(images, gt_labels, dev, top: int = 20) -> None:
             log(f"  {e.self_device_time_total / 1e3:10.3f} ms dev  {e.count:6d} calls  "
                 f"{e.self_cpu_time_total / 1e3:10.3f} ms cpu  {e.key[:90]}")
         # the measure stage's family ranges: host time (inclusive of the
-        # syncs inside), device time of the kernels launched within, and the
-        # range's extent on the device timeline
+        # syncs inside), device time and count of the kernels launched
+        # within, PyTorch's and the port's apart (each kernel once, through
+        # the op its launch is linked to), and the range's extent on the
+        # device timeline
         extent = {e.key: e.device_time_total for e in spans if e.device_type == DeviceType.CUDA}
         host = [e for e in spans if e.device_type == DeviceType.CPU]
-
-        def n_kernels(ev):
-            return len(ev.kernels) + sum(n_kernels(c) for c in ev.cpu_children)
-
-        def n_port(ev):  # the port's own kernels (csrc/*.cu) launched within
-            return (sum("sag_" in k.name for k in ev.kernels)
-                    + sum(n_port(c) for c in ev.cpu_children))
-
-        def outermost(ev):
-            p = ev.cpu_parent
-            while p is not None:
-                if p.name.startswith("measure/"):
-                    return False
-                p = p.cpu_parent
-            return True
-
-        launched: dict[str, int] = {}
-        port_inside = 0
-        for ev in prof.events():
-            if ev.name.startswith("measure/") and ev.device_type == DeviceType.CPU:
-                launched[ev.name] = launched.get(ev.name, 0) + n_kernels(ev)
-                if outermost(ev):
-                    port_inside += n_port(ev)
-        port_all = sum(e.count for e in kernels if "sag_" in e.key)
+        by_range, port_all, port_inside = trace_ranges(prof)
         if name == "measure":
-            # do the ctypes launches land in the family ranges that enclose them?
+            # each launch is an op of its own (segment_cuda._launch), so its
+            # kernel lands in the family range that encloses it
             log(f"  the port's kernels: {port_all} launched, {port_inside} of them inside a "
                 "measure/<family> range")
         for e in sorted(host, key=lambda e: e.cpu_time_total, reverse=True):
+            us_t, n_t, us_p, n_p = by_range.get(e.key, (0.0, 0, 0.0, 0))
             log(f"  range {e.key:24s} {e.count:3d} calls  {e.cpu_time_total / 1e3:10.3f} ms host  "
-                f"{e.device_time_total / 1e3:10.3f} ms kernels  "
-                f"{extent.get(e.key, 0.0) / 1e3:10.3f} ms device extent  "
-                f"{launched.get(e.key, 0):7d} launches")
+                f"{(us_t + us_p) / 1e3:10.3f} ms kernels ({us_t / 1e3:.3f} PyTorch's, "
+                f"{us_p / 1e3:.3f} the port's in {n_p} launches)  "
+                f"{extent.get(e.key, 0.0) / 1e3:10.3f} ms device extent  {n_t + n_p:7d} launches")
+        if name == "measure" and port_inside != port_all:
+            raise AssertionError("the profiler puts some of the port's kernels outside the "
+                                 "measure/<family> ranges")
+
+
+def trace_ranges(prof) -> tuple[dict, int, int]:
+    """``range_kernels`` of a finished torch.profiler ``prof``'s events."""
+    from torch.autograd import DeviceType
+
+    raw = list(prof.profiler.kineto_results.events())
+    on_cpu = [k for k in raw if k.device_type() == DeviceType.CPU]
+    return range_kernels(
+        [(k.start_thread_id(), k.start_ns(), k.end_ns(), k.name()) for k in on_cpu
+         if k.name().startswith("measure/")],
+        # ops: the CPU events no other event links to (runtime calls link to
+        # their op, and carry a correlation id of another count)
+        [(k.start_thread_id(), k.start_ns(), k.correlation_id()) for k in on_cpu
+         if k.linked_correlation_id() == 0 and not k.name().startswith("measure/")],
+        [(k.name(), k.linked_correlation_id(), (k.end_ns() - k.start_ns()) / 1e3)
+         for k in raw if k.device_type() == DeviceType.CUDA and not k.name().startswith("measure/")])
+
+
+def range_kernels(spans: list, ops: list, device: list) -> tuple[dict, int, int]:
+    """Device work by ``measure/<family>`` range, from a trace's events:
+    ``spans``, each range as (thread, start ns, end ns, name); ``ops``,
+    each op that can launch as (thread, start ns, correlation id);
+    ``device``, each device activity once as (name, the correlation id of
+    the op that launched it, us). An op lies in the ranges of its thread
+    that contain its start. Returns ({range: [PyTorch's us, its launches,
+    the port's (``sag_*``) us, its launches]}, the port's launches, those
+    inside a range); a launch counts in every range around it. Id 0 links
+    nothing."""
+    op_ranges: dict[int, set] = {}
+    for thread, t0, corr in ops:
+        if corr:
+            op_ranges[corr] = {n for th, a, b, n in spans if th == thread and a <= t0 < b}
+    by_range: dict[str, list] = {}
+    port_all = port_inside = 0
+    for kname, corr, us in device:
+        port = "sag_" in kname
+        ranges = op_ranges.get(corr, set())
+        port_all += port
+        port_inside += port and bool(ranges)
+        for r in ranges:
+            acc = by_range.setdefault(r, [0.0, 0, 0.0, 0])
+            acc[2 * port] += us
+            acc[2 * port + 1] += 1
+    return by_range, port_all, port_inside
 
 
 def profile_pixel_path(dev, top: int = 8) -> None:

@@ -84,6 +84,10 @@ __all__ = [
     "edt_kernel_info",
     "seg_pick2",
     "pick2_plain",
+    "pick2_plan",
+    "pick2_out",
+    "Pick2Plan",
+    "pick2_kernel_info",
     "n_lanes_a",
     "n_lanes_c",
     "table_cols_c",
@@ -192,7 +196,8 @@ SIGNATURES = {
     "sag_radial_info": (_I, _P),
     "sag_edt_sweep": (_P, _P, _P, _I, _I, _I, _I, _P),
     "sag_edt_sweep_info": (_I, _I, _I, _P),
-    "sag_pick2": (_P, _P, _P, _P, _I, _LL, _I, _I, _P),
+    "sag_pick2": (_P, _P, _P, _P, _I, _LL, _I, _I, _LL, _I, _I, _P),
+    "sag_pick2_info": (_I, _P),
     "sag_lanczos": (_P, _I, _P, _P, _P, _I, _I, _P, _P, _I, _I, _P, _P) + (_I,) * 9 + (_P,),
     "sag_lanczos_info": (_I, _I, _I, _P),
 }
@@ -224,9 +229,16 @@ def _check(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int) -> None:
 
 
 def _launch(fn_name: str, counter: str, device: torch.device, *args) -> None:
+    """Calls ``fn_name`` of the library on ``device``'s current stream and
+    counts the launch. Under a running torch.profiler the call is an op of
+    its own, ``sag/<counter>``: the profiler links a kernel to the op whose
+    correlation id the launch carries, which only an op (a FUNCTION-scope
+    record, as PyTorch's own launches and Triton's have) pushes, not a
+    ``record_function`` range. Without a profiler the record is a no-op."""
     lib = _lib()
     stream = torch.cuda.current_stream(device).cuda_stream
-    rc = getattr(lib, fn_name)(*args, stream)
+    with torch._C._profiler._RecordFunctionFast(f"sag/{counter}"):
+        rc = getattr(lib, fn_name)(*args, stream)
     if rc != 0:
         msg = lib.sag_error_string(rc).decode()
         raise RuntimeError(f"{fn_name} failed: CUDA error {rc} ({msg})")
@@ -1174,35 +1186,110 @@ def edt_sweep_plain(v2: torch.Tensor, d2_init: torch.Tensor, max_radius: int) ->
 # K6: per-pixel two-level table pick
 
 
+# K6's launch plan (csrc/pick2.cu): each site cut into ranges of
+# K6_CTA_VECS 16-byte vectors of 4 items (a pixel's channels), one a CTA,
+# as many CTAs as that takes; a site's ragged head and tail go to its
+# first CTA.
+K6_THREADS = 256                # K6_THREADS in pick2.cu
+K6_CTA_VECS = 2 * K6_THREADS    # vectors a CTA: two a thread
+K6_MAX_KC = 4                   # K6_MAX_KC: object sets a launch (more go in chunks)
+K6_MAX_INDEX = 2**31            # the kernel's 32-bit item and table-row indices stay below
+
+
+@dataclass(frozen=True)
+class Pick2Plan:
+    """K6's launch plan: ``ctas`` CTAs a site, each over ``vecs`` 16-byte
+    vectors of the site's aligned items (the ragged head and tail of a site,
+    at most 3 items each, go to its first CTA)."""
+
+    ctas: int
+    vecs: int
+
+
+def pick2_plan(batch: int, n: int, n_ch: int) -> Pick2Plan:
+    """K6's plan for (batch, n, n_ch) codes: K6_CTA_VECS vectors a CTA.
+    Raises ValueError where a site's n * n_ch items do not fit the
+    kernel's 32-bit index."""
+    if batch < 1 or batch > 65535 or n < 0 or n_ch < 1:
+        raise ValueError(f"K6 takes 1..65535 sites of n >= 0 pixels and >= 1 channels "
+                         f"(got {batch}, {n}, {n_ch})")
+    if n * n_ch >= K6_MAX_INDEX:
+        raise ValueError(f"K6 indexes a site's items in 32 bits: {n} x {n_ch} items exceed it")
+    n_vec = n * n_ch // 4  # no fewer than any site's aligned vectors
+    return Pick2Plan(max(1, -(-n_vec // K6_CTA_VECS)), K6_CTA_VECS)
+
+
+@lru_cache(maxsize=None)
+def pick2_kernel_info(kc: int) -> dict[str, int]:
+    """Resources of K6's ``kc``-set kernel on the current card: registers
+    and local (spilled) bytes a thread, resident CTAs a SM."""
+    info = (ctypes.c_int * 3)()
+    rc = _lib().sag_pick2_info(kc, info)
+    if rc != 0:
+        raise RuntimeError(f"sag_pick2_info failed: CUDA error {rc}")
+    return dict(zip(("registers", "local_bytes", "ctas_per_sm"), info))
+
+
+def pick2_out(b: int, n: int, n_ch: int, k: int, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """K6's output, set-major: a (K, plane) f32 buffer whose row k holds set
+    k's (B, N, C) ranks from its start (plane: B * N * C rounded up to 4, so
+    that every row starts 16-byte aligned), and the (B, N, C, K) view of it
+    that ``seg_pick2`` and ``pick2_plain`` return, whose ``[..., k]`` is
+    contiguous."""
+    m = b * n * n_ch
+    buf = torch.empty((k, -(-m // 4) * 4), dtype=torch.float32, device=device)
+    return buf, buf[:, :m].view(k, b, n, n_ch).permute(1, 2, 3, 0)
+
+
+def pick2_args(hi, lo, tables, buf, plan: Pick2Plan) -> tuple[tuple, tuple]:
+    """The ``sag_pick2`` arguments (without the stream) and the 16-byte
+    aligned tensors they point into, which must outlive them."""
+    b, n, n_ch = hi.shape
+    hi, lo, tables = _aligned(hi), _aligned(lo), _aligned(tables)
+    return ((hi.data_ptr(), lo.data_ptr(), tables.data_ptr(), buf.data_ptr(), b, n, n_ch,
+             tables.shape[4], buf.shape[1], plan.ctas, plan.vecs), (hi, lo, tables))
+
+
 def seg_pick2(hi: torch.Tensor, lo: torch.Tensor, tables: torch.Tensor) -> torch.Tensor:
     """hi, lo (B, N, C) int32 byte codes + tables (B, C, 256, 256, K) f32 ->
     (B, N, C, K) f32: ``tables[b, c, hi[b, i, c], lo[b, i, c], k]``, exact
-    (codes outside [0, 256) give 0)."""
+    (codes outside [0, 256) give 0), laid out set-major (``pick2_out``:
+    each ``[..., k]`` is contiguous). One call of ``pick2_plan``'s launch,
+    a kernel a chunk of at most K6_MAX_KC sets. Raises ValueError where an
+    index would overflow 32 bits: a site of n * C >= 2^31 items, or
+    tables of C * 65536 * K >= 2^31 floats a site."""
+    if hi.dim() != 3 or lo.shape != hi.shape or tables.dim() != 5 \
+            or tables.shape[:4] != (hi.shape[0], hi.shape[2], 256, 256) or tables.shape[4] < 1:
+        raise ValueError(f"hi {tuple(hi.shape)}, lo {tuple(lo.shape)} and tables "
+                         f"{tuple(tables.shape)} do not match")
+    b, n, n_ch = hi.shape
+    k = tables.shape[4]
+    plan = pick2_plan(b, n, n_ch)  # raises where the items overflow the 32-bit index
+    if n_ch * 65536 * k >= K6_MAX_INDEX:
+        raise ValueError(f"K6 indexes a site's table rows in 32 bits: {n_ch} x 65536 x {k} "
+                         "floats exceed it")
     _check(hi, "hi", torch.int32, 3)
     _check(lo, "lo", torch.int32, 3)
     _check(tables, "tables", torch.float32, 5)
-    b, n, n_ch = hi.shape
-    if lo.shape != hi.shape or tables.shape[:4] != (b, n_ch, 256, 256):
-        raise ValueError(f"hi {tuple(hi.shape)}, lo {tuple(lo.shape)} and tables "
-                         f"{tuple(tables.shape)} do not match")
-    k = tables.shape[4]
-    out = torch.empty((b, n, n_ch, k), dtype=torch.float32, device=hi.device)
-    _launch(
-        "sag_pick2", "seg_pick2", hi.device,
-        hi.data_ptr(), lo.data_ptr(), tables.data_ptr(), out.data_ptr(), b, n, n_ch, k,
-    )
+    dev = hi.device
+    buf, out = pick2_out(b, n, n_ch, k, dev)
+    args, _keep = pick2_args(hi, lo, tables, buf, plan)
+    _launch("sag_pick2", "seg_pick2", dev, *args)
     return out
 
 
 def pick2_plain(hi: torch.Tensor, lo: torch.Tensor, tables: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch form of ``seg_pick2`` (an indexed gather)."""
+    """Plain PyTorch form of ``seg_pick2`` (an indexed gather), in the same
+    set-major layout."""
     b, n, n_ch = hi.shape
     k = tables.shape[4]
     h, l = hi.long(), lo.long()
     ok = (h >= 0) & (h < 256) & (l >= 0) & (l < 256)
     idx = torch.where(ok, h * 256 + l, torch.zeros_like(h))
-    flat = tables.reshape(b, n_ch, 65536, k)
+    flat = tables.reshape(b, n_ch, 65536, k).permute(3, 0, 1, 2)  # (K, B, C, 65536)
     site = torch.arange(b, device=hi.device)[:, None, None]
     chan = torch.arange(n_ch, device=hi.device)[None, None, :]
-    out = flat[site, chan, idx]  # (B, N, C, K)
-    return torch.where(ok[..., None], out, torch.zeros_like(out))
+    sets = flat[:, site, chan, idx]  # (K, B, N, C)
+    buf, out = pick2_out(b, n, n_ch, k, hi.device)
+    out.permute(3, 0, 1, 2).copy_(torch.where(ok, sets, torch.zeros_like(sets)))
+    return out

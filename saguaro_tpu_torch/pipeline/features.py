@@ -291,10 +291,12 @@ def _measure_all(image: torch.Tensor, nuclei: torch.Tensor, cfg: FeatureConfig) 
         cnt_f, vmin_f, vmax_f = fused["stats"]
         if cfg.measure_quantiles or cfg.measure_texture:
             # one per-pixel (vmin, vrange) gather shared by texture and quantiles
-            vrange_f = torch.clamp(vmax_f - vmin_f, min=1e-12)
-            g_ranges = mxu_take_t(
-                torch.cat([vmin_f, vrange_f], dim=2), _flat(labels, cfg.max_cells), cfg.max_cells
-            )
+            with record_function("measure/pixel_ranges"):
+                vrange_f = torch.clamp(vmax_f - vmin_f, min=1e-12)
+                g_ranges = mxu_take_t(
+                    torch.cat([vmin_f, vrange_f], dim=2), _flat(labels, cfg.max_cells),
+                    cfg.max_cells,
+                )
             px_ranges = (g_ranges[:, :n_ch], g_ranges[:, n_ch:])
         if cfg.measure_texture:
             with record_function("measure/texture"):

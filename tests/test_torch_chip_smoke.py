@@ -4,7 +4,9 @@ in the repository and in a directory holding nothing else; its main path
 (engine segment, Euler recovery held against the ground truth and the
 CPU) and its pixel path
 (max projection -> re-binning -> illumination estimate -> QC) rehearse on
-the CPU at a small size through the plain forms."""
+the CPU at a small size through the plain forms; and ``--profile``'s
+reading of a trace by ``measure/<family>`` range holds on synthetic
+events."""
 
 import importlib.util
 import json
@@ -114,3 +116,20 @@ ptxas info    : Used 255 registers, 384 bytes cmem[0]
         {"name": "_Z9sag_countsPKi", "registers": 255, "stack": 16, "spill_stores": 8,
          "spill_loads": 4, "smem": 0},
     ]
+
+
+def test_range_kernels_attributes_each_launch_once(smoke):
+    """``--profile``'s reading of a trace: each device activity counts once,
+    in every ``measure/<family>`` range (nested ones too) around the op that
+    launched it on that op's thread, PyTorch's and the port's (``sag_*``)
+    apart; a port kernel whose op lies in no range, whose op is not in the
+    trace, or that is linked to no op (id 0), counts as outside."""
+    spans = [(1, 0, 100, "measure/a"), (1, 10, 50, "measure/b"), (1, 200, 300, "measure/c"),
+             (2, 0, 1000, "measure/d")]
+    ops = [(1, 5, 11), (1, 20, 12), (1, 150, 13), (1, 250, 14), (2, 60, 15), (1, 30, 0)]
+    device = [("sag_x", 11, 2.0), ("at::k", 11, 1.0), ("sag_y", 12, 3.0), ("sag_z", 13, 4.0),
+              ("at::m", 14, 5.0), ("sag_w", 99, 1.0), ("at::n", 15, 0.5), ("sag_v", 0, 1.0)]
+    by_range, port_all, inside = smoke.range_kernels(spans, ops, device)
+    assert by_range == {"measure/a": [1.0, 1, 5.0, 2], "measure/b": [0.0, 0, 3.0, 1],
+                        "measure/c": [5.0, 1, 0.0, 0], "measure/d": [0.5, 1, 0.0, 0]}
+    assert (port_all, inside) == (5, 2)

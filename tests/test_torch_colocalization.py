@@ -95,11 +95,9 @@ def test_coloc_threshold_sums(sites):
         assert np.all(np.abs(got[s] - want) <= 2.0**-15 * mag + 1e-6)
 
 
-@pytest.mark.parametrize("integer_grid", [True, False])
-def test_multiset_matches_reference(sites, integer_grid):
-    img, nuc, cyto = sites
-    if not integer_grid:
-        img = img * np.float32(0.37)
+def _multiset_inputs(img, nuc, cyto):
+    """The three object sets (Cells = Nuclei + Cytoplasm) and each set's
+    per-object channel maxima."""
     cells = np.where(cyto > 0, cyto, nuc)
     sets = {"Cells": cells, "Nuclei": nuc, "Cytoplasm": cyto}
     vmax = {}
@@ -109,9 +107,16 @@ def test_multiset_matches_reference(sites, integer_grid):
             for k in np.unique(l[s][(l[s] > 0) & (l[s] < MC)]):
                 v[s, k] = img[s][l[s] == k].max(0)
         vmax[nm] = v
-    got = port.colocalization_features_multiset(
+    return sets, vmax
+
+
+def _run_multiset(img, sets, vmax, integer_grid):
+    return port.colocalization_features_multiset(
         torch.from_numpy(img), {k: torch.from_numpy(v) for k, v in sets.items()},
         {k: torch.from_numpy(v) for k, v in vmax.items()}, MC, integer_grid=integer_grid)
+
+
+def _hold_multiset(got, img, sets, vmax, integer_grid):
     for s in range(len(img)):
         want = ref.colocalization_features_multiset(
             jnp.asarray(img[s]), {k: jnp.asarray(v[s]) for k, v in sets.items()},
@@ -129,6 +134,42 @@ def test_multiset_matches_reference(sites, integer_grid):
                     g = got[nm][key][stat][s].numpy()
                     tol = feature_tolerance(stat, r, None, *img.shape[1:3])
                     assert np.all(np.abs(g - r) <= tol), (nm, key, stat, r, g)
+
+
+@pytest.mark.parametrize("integer_grid", [True, False])
+def test_multiset_matches_reference(sites, integer_grid):
+    img, nuc, cyto = sites
+    if not integer_grid:
+        img = img * np.float32(0.37)
+    sets, vmax = _multiset_inputs(img, nuc, cyto)
+    _hold_multiset(_run_multiset(img, sets, vmax, integer_grid), img, sets, vmax, integer_grid)
+
+
+def test_multiset_ranks_reach_pass_e_without_a_copy(sites, monkeypatch):
+    """Each object set's ranks reach pass E as the rank pick's own
+    set-major plane (``ranks_all[..., k]``, contiguous), not a copy; the
+    outputs still equal the reference's."""
+    img, nuc, cyto = sites
+    sets, vmax = _multiset_inputs(img, nuc, cyto)
+    picked, passed = [], []
+    pick, lane_e = port._pick_rows_mc, port.sc.lane_sums_e_plain
+
+    def pick_rec(*args):
+        picked.append(pick(*args))
+        return picked[-1]
+
+    def lane_e_rec(labels, image, ranks, *args, **kw):
+        passed.append(ranks.data_ptr())
+        return lane_e(labels, image, ranks, *args, **kw)
+
+    monkeypatch.setattr(port, "_pick_rows_mc", pick_rec)
+    monkeypatch.setattr(port.sc, "lane_sums_e_plain", lane_e_rec)
+    got = _run_multiset(img, sets, vmax, True)
+    (ranks_all,) = picked
+    assert ranks_all.shape[-1] == len(sets)
+    assert passed == [ranks_all[..., k].data_ptr() for k in range(len(sets))]
+    assert all(ranks_all[..., k].is_contiguous() for k in range(len(sets)))
+    _hold_multiset(got, img, sets, vmax, True)
 
 
 def test_costes_fine_scale_not_ported(sites):

@@ -4,7 +4,8 @@ tensors: K1 and K2 exactly; K3 to 1e-5 of the per-label sum of |value|
 f64, to 1e-5 of each lane's rounding scale (``magnitude=True``: the sum of
 |lane|, and for Zernike lanes of the radial terms' magnitudes); counted
 lanes (areas, small-integer sums) exactly; K7's sums to 1e-5 of each
-output's sum of |w * x|, its rounded integers within 1 unit. Marker
+output's sum of |w * x|, its rounded integers within 1 unit; K5 and K6
+(in the plain form's set-major layout) exactly. Marker
 ``cuda``: skipped without a card. The
 file imports neither JAX nor the reference, so it runs on the card:
 
@@ -22,12 +23,14 @@ from saguaro_tpu_torch.kernels import segment_cuda as sc
 from saguaro_tpu_torch.kernels.segment_reduce import perimeter_weight_image
 
 from .torch_data import (
+    PICK2_CASES,
     RADIAL_CASES,
     adversarial_lane_args_a,
     adversarial_lane_args_c,
     adversarial_lane_args_e,
     blob_sites,
     edt_adversarial_cases,
+    pick2_case,
     radial_adversarial_site,
 )
 
@@ -324,16 +327,42 @@ def test_edt_sweep_kernel_adversarial(cuda, case):
     assert _equal_nan(got, sc.edt_sweep_plain(v2, d2, radius))
 
 
-@pytest.mark.cuda
-def test_pick2_kernel_exact(cuda):
-    rng = np.random.default_rng(8)
-    hi = torch.from_numpy(rng.integers(-1, 257, (2, 30000, 3)).astype(np.int32)).to(cuda)
-    lo = torch.from_numpy(rng.integers(0, 256, (2, 30000, 3)).astype(np.int32)).to(cuda)
-    tables = torch.from_numpy(
-        rng.integers(0, 65536, (2, 3, 256, 256, 2)).astype(np.float32)).to(cuda)
+def _hold_pick2(hi, lo, tables):
+    """K6 on CUDA tensors equal to its plain form, in the plain form's
+    set-major layout: shape, strides, each set's ranks contiguous."""
     got = sc.seg_pick2(hi, lo, tables)
     torch.cuda.synchronize()
-    assert torch.equal(got, sc.pick2_plain(hi, lo, tables))
+    want = sc.pick2_plain(hi, lo, tables)
+    assert got.shape == want.shape == (*hi.shape, tables.shape[4])
+    assert got.stride()[:3] == want.stride()[:3]
+    assert all(got[..., k].is_contiguous() for k in range(tables.shape[4]))
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_ch,k", [*PICK2_CASES, (3, 6)])
+def test_pick2_kernel_exact(cuda, n_ch, k):
+    """Every channel count and set count (K > 4 in chunks), B = 1 or 3, odd
+    N (later sites start unaligned), codes outside [0, 256) on both sides."""
+    _hold_pick2(*(torch.from_numpy(a).to(cuda) for a in pick2_case(n_ch, k, seed=8 * n_ch + k)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [0, 1, 2, 3, 7, 1_025])
+def test_pick2_kernel_small_sites(cuda, n):
+    """Sites of fewer items than a vector, or a few vectors: the ragged
+    heads and tails alone."""
+    _hold_pick2(*(torch.from_numpy(a).to(cuda) for a in pick2_case(3, 2, seed=n, n=n)))
+
+
+@pytest.mark.cuda
+def test_pick2_kernel_unaligned_views(cuda):
+    """Codes and tables whose data start 4 bytes past a 16-byte boundary:
+    the wrapper copies them aligned."""
+    hi, lo, tables = pick2_case(5, 3, seed=3, n=10_001)
+    args = [_unaligned(a, cuda) for a in (hi, lo, tables)]
+    assert all(a.data_ptr() % 16 for a in args)
+    _hold_pick2(*args)
 
 
 @pytest.mark.cuda

@@ -304,3 +304,25 @@ def radial_adversarial_site(case: str, n_ch: int, seed: int = 5):
 
 
 RADIAL_CASES = ("all background", "one key", "runs of 1-9", "odd n, 3 sites")
+
+
+# K6 (the rank pick): every (channels, object sets) the card tests hold
+PICK2_CASES = tuple((n_ch, k) for n_ch in (1, 2, 5, 8) for k in (1, 2, 3, 4))
+
+
+def pick2_case(n_ch: int, k: int, seed: int = 0, n: int | None = None):
+    """(hi, lo (B, N, C) int32 byte codes, tables (B, C, 256, 256, K) f32)
+    that stress K6's walk: one site where K is odd, else 3; an odd N (by
+    default 30,001 + 2C), so that n C is not a multiple of 4 where C is
+    odd or 2 mod 4 and the later sites start unaligned; codes in [-3, 259),
+    outside [0, 256) on both sides, with runs of one code; tables of
+    integers below 2^16, as dense ranks are."""
+    rng = np.random.default_rng(seed)
+    b = 1 if k % 2 else 3
+    n = 30_001 + 2 * n_ch if n is None else n
+    hi = rng.integers(-3, 259, (b, n, n_ch)).astype(np.int32)
+    lo = rng.integers(-3, 259, (b, n, n_ch)).astype(np.int32)
+    hi[:, n // 3 : n // 3 + 40] = 7  # a run of one row
+    lo[:, n // 3 : n // 3 + 40] = 9
+    tables = rng.integers(0, 65536, (b, n_ch, 256, 256, k)).astype(np.float32)
+    return hi, lo, tables
