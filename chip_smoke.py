@@ -23,7 +23,14 @@ reference's default FeatureConfig (every family on), and
 a site's ground-truth flows, held against the ground truth and against
 the CPU. Pixel stages: ``run_max_projection``, ``run_rebin``, the
 ``estimate_illum`` CLI and ``run_illumination_qc`` on a temporary plate of
-raw 2160 x 2160 uint16 z-stacks (4 fields x 5 channels x 3 planes). It
+raw 2160 x 2160 uint16 z-stacks (4 fields x 5 channels x 3 planes). Embed:
+``embed_sites_pooled`` at the engine's defaults (EfficientNetV2-L in bf16
+at 480², crops of 200², chunks of 128) on the 8 sites with their
+ground-truth labels, every site's cells and centroids checked against
+numpy, timed beside its bound and peak memory, the network held card
+against CPU in f32 and bf16 against f32, one chunk timed in NCHW and
+channels_last; then the segment-embed CLI (``run_pipeline``) on a 2-site
+plate, its four files checked. It
 fails unless each path launched every kernel it runs (K1's and K3's
 launches are logged by call site, with each site's shape), and prints one
 JSON line of per-kernel numbers, the card's name and power limit, and
@@ -72,6 +79,7 @@ PIX_FIELDS = 4
 PIX_PLANES = 3
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 F32_OPS_PER_S = 67e12       # H100 SXM f32 outside the tensor cores
+BF16_OPS_PER_S = 989e12     # H100 SXM bf16, dense tensor cores
 PALLAS = "saguaro_tpu/kernels/segment_pallas.py"
 # K4 tolerance: the kernel builds its lanes in f32 and sums them with f32
 # atomics in a run-dependent order; against the plain form evaluated in f64
@@ -80,6 +88,22 @@ PALLAS = "saguaro_tpu/kernels/segment_pallas.py"
 # magnitudes, see segment_cuda._lanes_c). Count lanes are exact. The
 # radial sums (K4 radial) and pass E are held the same way.
 SUM_RTOL = 1e-5
+BOX = 200                   # the embed stage's crop box (Cellpose_GPU_s3fs.py:30)
+EMBED_SIZE = 480            # its network input
+# the (sites x max_cells x box² x channels) f32 crop pool the embed stage
+# never holds
+POOL_BYTES = N_SITES * MAX_CELLS * BOX * BOX * len(CHANNELS) * 4
+# embed numerics (tools/embed_numerics_cpu.py measures these on the CPU):
+# the card against the CPU in f32 (TF32 off) differs by summation order
+# only, which 79 blocks amplify (a 1e-6 input perturbation grows about
+# 190x through L). bf16 against f32 rounds at every layer, and the random
+# network amplifies that as much: on the CPU the same check gives cosines
+# of 0.946-0.959 between a crop's bf16 and f32 embeddings, where two crops'
+# f32 embeddings lie at 0.90-0.93 (their common part dominates). So bf16 is held to keep each crop's identity: a
+# crop's bf16 embedding nearer (in cosine) to its own f32 embedding than
+# any two crops' f32 embeddings are to each other.
+CPU_CHECK_SIZE = 128
+EMBED_CPU_RTOL = 1e-3
 
 
 def log(msg: str) -> None:
@@ -1339,6 +1363,403 @@ def run_job(images, labels, dev):
     log(f"job: 4 CSVs, Nuclei rows {len(tables['Nuclei'])}, no site failures")
 
 
+# --------------------------------------------------------------------------
+# Embed stage: masked crops into EfficientNetV2-L, dead-cell scoring, and the
+# segment-embed pipeline through its CLI
+
+
+def expected_cells(gt, box: int = BOX):
+    """Per site of ground-truth labels (B, H, W), the ids and (cy, cx) of the
+    cells the reference's edge rule keeps, in label order: centroids as the
+    floor of the f32 quotient of the exact coordinate sums and the count."""
+    h, w = gt.shape[1:]
+    yy, xx = np.mgrid[:h, :w]
+    half = box // 2
+    out = []
+    for lab in gt:
+        flat = lab.ravel()
+        n = int(flat.max()) + 1
+        cnt = np.bincount(flat, minlength=n)
+        cnt[0] = 0
+        denom = np.maximum(cnt, 1).astype(np.float32)
+        cy = np.floor(np.bincount(flat, yy.ravel(), n).astype(np.float32) / denom).astype(np.int64)
+        cx = np.floor(np.bincount(flat, xx.ravel(), n).astype(np.float32) / denom).astype(np.int64)
+        keep = (cnt > 0) & (cy - half >= 0) & (cy + half <= h) & (cx - half >= 0) & (cx + half <= w)
+        ids = np.flatnonzero(keep)
+        out.append((ids, np.stack([cy[ids], cx[ids]], axis=-1)))
+    return out
+
+
+def effnet_cost(config, size: int, in_ch: int = 1) -> tuple[int, int]:
+    """(multiply-adds, bytes) of one crop through an EffNetV2 config at
+    size², walked from the config: every convolution's MACs (depthwise ones
+    per group), the squeeze-excitation products, and the bytes of every
+    convolution's output written once and read once in bf16 (4 B an
+    element) plus the f32 input read once."""
+    macs = elems = 0
+    n = size
+
+    def conv(cin, cout, k, s, groups=1):
+        nonlocal n, macs, elems
+        n = -(-n // s)
+        macs += n * n * cout * (cin // groups) * k * k
+        elems += n * n * cout
+
+    conv(in_ch, config.stem_filters, 3, 2)
+    cin = config.stem_filters
+    for spec in config.stages:
+        for i in range(spec.count):
+            s = spec.stride if i == 0 else 1
+            mid = cin * spec.expand
+            if spec.block == "fused" and spec.expand == 1:
+                conv(cin, spec.filters, spec.kernel, s)
+            elif spec.block == "fused":
+                conv(cin, mid, spec.kernel, s)
+                conv(mid, spec.filters, 1, 1)
+            else:
+                conv(cin, mid, 1, 1)
+                conv(mid, mid, spec.kernel, s, groups=mid)
+                macs += 2 * mid * max(1, int(cin * spec.se_ratio))
+                conv(mid, spec.filters, 1, 1)
+            cin = spec.filters
+    conv(cin, config.head_filters, 1, 1)
+    return macs, 4 * elems + 4 * size * size * in_ch
+
+
+def embed_bound(n_crops: int, config, size: int, box: int) -> tuple[float, str, float, float]:
+    """The embed stage's least time on the card for ``n_crops`` crops (s):
+    the larger of its bytes over the memory rate (each crop's network
+    activations, ``effnet_cost``, and its box² f32 crop) and its operations
+    (the network's in bf16 on the tensor cores, the two resize products'
+    in f32). Returns (seconds, which bounds, bf16 FLOPs, bytes)."""
+    macs, act = effnet_cost(config, size)
+    flops = 2.0 * macs * n_crops
+    f32_flops = 2.0 * n_crops * (box * box * size + size * box * size)
+    n_bytes = float(n_crops) * (act + 4 * box * box)
+    t_bytes = n_bytes / HBM_BYTES_PER_S
+    t_ops = flops / BF16_OPS_PER_S + f32_flops / F32_OPS_PER_S
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), flops, n_bytes
+
+
+def path_crops(images, gt, dev, n: int, box: int = BOX):
+    """The first ``n`` crop slots the engine would embed (cell-major,
+    channel-minor over the sites), gathered on ``dev``: (n, box, box) f32."""
+    import torch
+
+    from saguaro_tpu_torch.kernels.crops import gather_crops
+
+    n_ch = images.shape[-1]
+    slots = [(s, k, c, y, x) for s, (ids, yx) in enumerate(expected_cells(gt, box))
+             for k, (y, x) in zip(ids, yx) for c in range(n_ch)][:n]
+    idx = torch.as_tensor(np.array(slots).T, device=dev)
+    chw = torch.as_tensor(images, device=dev).float().permute(0, 3, 1, 2).contiguous()
+    return gather_crops(chw, torch.as_tensor(gt, device=dev), *idx, box=box)
+
+
+def calibrated_effnet(images, gt, dev, n: int = 32, size: int = EMBED_SIZE) -> dict:
+    """An EFFNETV2_L state dict (unfolded, timm keys): convolution weights
+    random from seed 0, and BatchNorm statistics those of one pass over the
+    path's first ``n`` crops at ``size``² in f32 (train mode, momentum 1),
+    so that every layer's activations stay of order one through the 79
+    blocks. With the default statistics (identity) the largest feature is
+    about 0.002 (0.44 calibrated), where a comparison of two devices or
+    dtypes says little."""
+    import dataclasses
+
+    import torch
+
+    from saguaro_tpu_torch.device import full_f32
+    from saguaro_tpu_torch.models.effnetv2 import EFFNETV2_L, init_effnetv2, preprocess_crops
+
+    model = init_effnetv2(dataclasses.replace(EFFNETV2_L, compute_dtype="float32"), seed=0, device=dev)
+    for m in model.modules():
+        if isinstance(m, torch.nn.BatchNorm2d):
+            m.momentum = 1.0
+    model.train()
+    with torch.no_grad(), full_f32():
+        model(preprocess_crops(path_crops(images, gt, dev, n), size, n_channels=3))
+    return model.eval().state_dict()
+
+
+class ErrorLog(logging.Handler):
+    """Collects the messages of ERROR records (the engine's degrades)."""
+
+    def __init__(self):
+        super().__init__(logging.ERROR)
+        self.messages: list[str] = []
+
+    def emit(self, record):
+        self.messages.append(record.getMessage())
+
+
+def check_embed_numerics(engine, images, gt, dev) -> dict:
+    """The embedding network against itself elsewhere, on the path's first
+    crops. Card against CPU: full-width L, f32 with TF32 off, the engine's
+    weights, 8 crops at 128²; every feature within EMBED_CPU_RTOL of the
+    features' largest magnitude. bf16 against f32 on the card: the engine's
+    network and its f32 twin on the same 8 crops at the path's 480²; each
+    crop's bf16 embedding nearer to its own f32 embedding than any two
+    crops' f32 embeddings are to each other. Returns the measured errors."""
+    import copy
+    import dataclasses
+
+    import torch
+
+    from saguaro_tpu_torch.device import full_f32
+    from saguaro_tpu_torch.models.effnetv2 import preprocess_crops
+
+    crops = path_crops(images, gt, dev, 8)
+    f32 = copy.deepcopy(engine.feat_model)
+    f32.config = dataclasses.replace(f32.config, compute_dtype="float32")
+    x = preprocess_crops(crops, CPU_CHECK_SIZE, n_channels=1)
+    with torch.no_grad(), full_f32():
+        on_card = f32(x).cpu()
+        on_cpu = copy.deepcopy(f32).cpu()(x.cpu())
+        x = preprocess_crops(crops, engine.cfg.embed_size, n_channels=1)
+        want = f32(x)
+        got = engine.feat_model(x.contiguous(memory_format=torch.channels_last))
+    scale = float(on_cpu.abs().max())
+    cpu_err = float((on_card - on_cpu).abs().max()) / scale
+    cos = torch.nn.functional.cosine_similarity(got.float(), want, dim=1)
+    unit = torch.nn.functional.normalize(want, dim=1)
+    cross = (unit @ unit.T)[~torch.eye(len(unit), dtype=torch.bool, device=unit.device)]
+    bf16_err = float((got.float() - want).abs().max() / want.abs().max())
+    log(f"embed numerics: card vs CPU (f32, {CPU_CHECK_SIZE}^2, 8 crops) max |diff| {cpu_err:.3g} of "
+        f"the features' scale {scale:.4g} (tolerance {EMBED_CPU_RTOL:g}); bf16 vs f32 on the card "
+        f"(480^2) cosine {float(cos.min()):.5f}-{float(cos.max()):.5f}, two crops' f32 at "
+        f"{float(cross.min()):.5f}-{float(cross.max()):.5f}, max |diff| {bf16_err:.3g} of the f32 "
+        "scale")
+    if not (torch.isfinite(on_card).all() and torch.isfinite(got).all()):
+        raise AssertionError("non-finite embeddings in the numerics check")
+    if cpu_err > EMBED_CPU_RTOL:
+        raise AssertionError(f"embedding on the card differs from the CPU by {cpu_err:.3g}")
+    if float(cos.min()) <= float(cross.max()):
+        raise AssertionError(f"a bf16 embedding at cosine {float(cos.min()):.4f} of its f32 one, "
+                             f"two crops' f32 embeddings at up to {float(cross.max()):.4f}")
+    return {"card_vs_cpu": cpu_err, "bf16_cos_min": float(cos.min()),
+            "f32_cross_cos_max": float(cross.max()), "bf16_vs_f32": bf16_err}
+
+
+def time_memory_formats(engine, dev, chunk: int) -> dict:
+    """ms of the engine's bf16 network on one chunk of (chunk, 1, 480, 480)
+    inputs, its weights and input in NCHW and in channels_last (CUDA
+    events, median of 5 after 2 warm-ups); the engine's own format is put
+    back."""
+    import torch
+
+    from saguaro_tpu_torch.pipeline.segment_embed import EMBED_MEMORY_FORMAT
+
+    size = engine.cfg.embed_size
+    x = torch.rand((chunk, 1, size, size), device=dev) * 2 - 1
+    out = {}
+    with torch.no_grad():
+        for name, fmt in (("channels_last", torch.channels_last), ("nchw", torch.contiguous_format)):
+            engine.feat_model.to(memory_format=fmt)
+            xin = x.contiguous(memory_format=fmt)
+            out[name] = time_ms(lambda: engine.feat_model(xin), reps=5)
+    engine.feat_model.to(memory_format=EMBED_MEMORY_FORMAT)
+    log(f"embed network, one chunk of {chunk} at {size}^2 in bf16: channels_last "
+        f"{out['channels_last']:.2f} ms, NCHW {out['nchw']:.2f} ms")
+    return out
+
+
+def run_embed(images, gt, dev) -> dict:
+    """The embed stage at its defaults (EFFNETV2_L, bf16, folded BN and RGB
+    stem, 480², box 200, chunks of 128) on the 8 sites with the ground
+    truth's labels (the random CPnet finds none): one warm-up call, then a
+    timed one (host clock to a synchronise). Every site comes back with the
+    cells the edge rule keeps, at the numpy centroids, with finite
+    features; no degrade is logged. Returns its numbers."""
+    import torch
+
+    from saguaro_tpu_torch.pipeline.segment_embed import SegmentEmbedConfig, SegmentEmbedEngine
+
+    errors = ErrorLog()
+    logging.getLogger("saguaro_tpu_torch.segment_embed").addHandler(errors)
+    try:
+        engine = SegmentEmbedEngine(SegmentEmbedConfig(channels=list(CHANNELS)),
+                                    effnet_state_dict=calibrated_effnet(images, gt, dev),
+                                    seed=0, device=dev)
+        cfg = engine.cfg
+        want = expected_cells(gt, cfg.box_size)
+        n_crops = sum(len(ids) for ids, _ in want) * len(CHANNELS)
+        engine.embed_sites_pooled(images, list(gt))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        got = engine.embed_sites_pooled(images, list(gt))
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        peak_total = torch.cuda.max_memory_allocated()
+        peak = peak_total - base
+        for s, ((feats, coords), (_, yx)) in enumerate(zip(got, want)):
+            if feats.shape != (len(yx), len(CHANNELS), 1280) or not np.array_equal(coords, yx):
+                raise AssertionError(f"site {s}: {feats.shape[0]} cells at other coords than the "
+                                     f"{len(yx)} the edge rule keeps")
+            if not np.isfinite(feats).all():
+                raise AssertionError(f"site {s}: non-finite embeddings")
+        feats_dev = torch.as_tensor(np.concatenate([f for f, _ in got]), device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        feats_dev.cpu()
+        copy_ms = (time.perf_counter() - t0) * 1e3
+        t_bound, by, flops, n_bytes = embed_bound(n_crops, cfg.effnet, cfg.embed_size, cfg.box_size)
+        chunks = -(-n_crops // cfg.embed_chunk)
+        log(f"embed: {len(want)} sites, {[len(y) for _, y in want]} cells, {n_crops} crops in "
+            f"{chunks} chunks of {cfg.embed_chunk}: {secs:.4f} s ({secs / len(want):.4f} s/site, "
+            f"{n_crops / secs:.1f} crops/s); peak {peak_total / 1e9:.3f} GB allocated, {peak / 1e9:.3f} "
+            f"GB above the weights and inputs (the crop pool would be {POOL_BYTES / 1e9:.3f} GB); bound {t_bound:.4f} s ({by}: "
+            f"{flops / 1e15:.4f} PFLOP bf16, {n_bytes / 1e12:.4f} TB); the embeddings' one copy "
+            f"to the host {copy_ms:.2f} ms")
+        numerics = check_embed_numerics(engine, images, gt, dev)
+        formats = time_memory_formats(engine, dev, cfg.embed_chunk)
+        if errors.messages:
+            raise AssertionError(f"the embed stage degraded: {errors.messages}")
+    finally:
+        logging.getLogger("saguaro_tpu_torch.segment_embed").removeHandler(errors)
+    return {"s_per_site": secs / len(want), "crops": n_crops, "chunks": chunks,
+            "crops_per_s": n_crops / secs, "peak_gb": peak / 1e9, "bound_s_per_site": t_bound / len(want),
+            "bound_by": by, "copy_ms": copy_ms, **numerics, **{f"chunk_ms_{k}": v for k, v in formats.items()}}
+
+
+def cone_sites(n_sites: int, size: int, seed: int, radius: float = 20.0):
+    """((B, size, size, 5) uint16 sites, (B, n, 2) nucleus centres): the
+    same grid of jittered nuclei as ``synthetic_sites`` (16 x 16 at 1080²),
+    each a cone of intensity (2000 at its centre, 0 at ``radius``) in every
+    channel over a background of 80-120: an intensity whose gradient points
+    to the centre with one magnitude everywhere inside, which
+    ``gradient_cpnet`` turns into flows."""
+    rng = np.random.default_rng(seed)
+    images = rng.integers(80, 120, (n_sites, size, size, len(CHANNELS))).astype(np.float32)
+    yy, xx = np.mgrid[-32:33, -32:33]
+    cone = 2000.0 * np.maximum(0.0, 1.0 - np.hypot(yy, xx) / radius)
+    centres = []
+    for s in range(n_sites):
+        centres.append([])
+        for cy in range(60, size - 35, 64):
+            for cx in range(60, size - 35, 64):
+                y, x = cy + rng.integers(-3, 4), cx + rng.integers(-3, 4)
+                images[s, y - 32 : y + 33, x - 32 : x + 33] += cone[..., None]
+                centres[s].append((y, x))
+    return images.astype(np.uint16), np.array(centres)
+
+
+def gradient_cpnet(config, gain: float = 30.0, cellprob_at: float = 0.3) -> dict:
+    """A CPnet state dict made without training, for the CLI phase: the
+    random net's masks all fail the flow QC (flow error above 0.4), so no
+    cell would reach the embed stage. Every convolution and Linear is zero
+    but three: the first block's projection copies the first input channel;
+    res_up_0's first style conv takes its central differences (+-d/dy,
+    +-d/dx, and the value); the head turns them into flows (``gain`` times
+    the gradient) and a cell probability above 0 where the normalised value
+    exceeds ``cellprob_at``. On ``cone_sites`` the flows point to each
+    nucleus' centre, as cellpose's own."""
+    import torch
+
+    from saguaro_tpu_torch.models.cellpose import init_cellpose
+
+    net = init_cellpose(config, device="cpu")
+    with torch.no_grad():
+        for m in net.modules():
+            if isinstance(m, (torch.nn.Conv2d, torch.nn.Linear)):
+                m.weight.zero_()
+                m.bias.zero_()
+        net.downsample.down.res_down_0.proj[1].weight[0, 0] = 1.0
+        w = net.upsample.up.res_up_0.conv.conv_1.conv[2].weight
+        w[0, 0, 1, 1] = 1.0
+        for ch, sign, (a, b) in ((1, 1, (2, 1)), (2, -1, (2, 1)), (3, 1, (1, 2)), (4, -1, (1, 2))):
+            w[ch, 0, a, b] = 0.5 * sign
+            w[ch, 0, 2 - a, 2 - b] = -0.5 * sign
+        head = net.output[2]
+        head.weight[0, 1], head.weight[0, 2] = gain, -gain
+        head.weight[1, 3], head.weight[1, 4] = gain, -gain
+        head.weight[2, 0] = 10.0
+        head.bias[2] = -10.0 * cellprob_at
+    return net.state_dict()
+
+
+def write_plate(root: str, images) -> str:
+    """One well a site: ``A0<i>_s1_<ch>.tiff`` under ``root``/Images and a
+    LoadData CSV; returns the CSV's path."""
+    import pandas as pd
+
+    from saguaro_tpu_torch.io import tiff
+
+    os.makedirs(os.path.join(root, "Images"), exist_ok=True)
+    rows = []
+    for s in range(len(images)):
+        row = {"Metadata_Plate": "P1", "Metadata_Well": f"A{s + 1:02}", "Metadata_Site": 1,
+               "Metadata_Timepoint": "6"}
+        for c, ch in enumerate(CHANNELS):
+            name = f"A{s + 1:02}_s1_{ch}.tiff"
+            tiff.imwrite(os.path.join(root, "Images", name), images[s, ..., c])
+            row[f"FileName_{ch}"] = name
+        rows.append(row)
+    path = os.path.join(root, "load_data.csv")
+    pd.DataFrame(rows).to_csv(path, index=False)
+    return path
+
+
+def run_cli(dev, n_sites: int = 2, size: int = SIZE) -> dict:
+    """The segment-embed CLI (``run_pipeline``) on a temporary plate of
+    ``n_sites`` ``cone_sites`` written as uint16 TIFFs, with
+    ``gradient_cpnet``'s CPnet as its checkpoint file, a synthetic XGBoost
+    JSON, ``--save_coords --single_cell``: its four files exist with the
+    reference's columns, a site embedded cells, and nothing degraded.
+    Returns seconds per site and the cells found."""
+    import pandas as pd
+    import torch
+
+    from saguaro_tpu_torch.cli.segment_embed import main as segment_embed
+    from saguaro_tpu_torch.models.cellpose import CellposeConfig
+    from tests.torch_data import xgb_model_json
+
+    errors = ErrorLog()
+    logging.getLogger("saguaro_tpu_torch.segment_embed").addHandler(errors)
+    try:
+        with tempfile.TemporaryDirectory() as root:
+            load_data = write_plate(root, cone_sites(n_sites, size, seed=12)[0])
+            cpnet = os.path.join(root, "cpnet.pt")
+            torch.save(gradient_cpnet(CellposeConfig()), cpnet)
+            xgb = os.path.join(root, "xgb.json")
+            with open(xgb, "w") as f:
+                f.write(xgb_model_json(len(CHANNELS) * 1280, seed=1))
+            t0 = time.perf_counter()
+            outputs = segment_embed([
+                "--bucket_input", root, "--data_base_path", os.path.join(root, "Images"),
+                "--load_data_key", "load_data.csv", "--channels", *CHANNELS,
+                "--out_data_path", os.path.join(root, "out", "plate.parquet"), "--save_coords",
+                "--single_cell", "--xgb_model_path", xgb, "--cellpose_checkpoint", cpnet,
+                "--max_workers", "4", "--device", str(dev)])
+            secs = (time.perf_counter() - t0) / n_sites
+            tables = {k: (pd.read_csv(v) if k == "counts" else pd.read_parquet(v))
+                      for k, v in outputs.items()}
+    finally:
+        logging.getLogger("saguaro_tpu_torch.segment_embed").removeHandler(errors)
+    base = ["Metadata_Plate", "Metadata_Well", "Metadata_Site", "Metadata_Timepoint",
+            *[f"FileName_{ch}" for ch in CHANNELS]]
+    want = {
+        "counts": base + ["Cell_Count", "Dead_Cells"],
+        "coords": ["Cell_ID", "Y_Center", "X_Center", "Is_Dead"],
+        "well_aggregated": ["Metadata_Well", "Cell_Count", "Metadata_Timepoint", "Metadata_Plate",
+                            "mean_features"],
+        "single_cell": base + ["Dead_Cells", "Cell_Index", "single_cell_features", "is_dead_cell"],
+    }
+    got = {k: list(t.columns) for k, t in tables.items()}
+    if got != want:
+        raise AssertionError(f"the CLI wrote {got}, expected {want}")
+    counts = tables["counts"]["Cell_Count"].tolist()
+    if max(counts) < 1 or len(tables["coords"]) != sum(counts):
+        raise AssertionError(f"the CLI embedded {counts} cells, {len(tables['coords'])} coords")
+    if errors.messages:
+        raise AssertionError(f"the CLI run degraded: {errors.messages}")
+    log(f"segment-embed CLI: {n_sites} sites of {size}^2 x {len(CHANNELS)}, cells {counts}, dead "
+        f"{tables['counts']['Dead_Cells'].tolist()}, {secs:.3f} s/site (host I/O, model builds "
+        "and first calls included); four files with the reference's columns")
+    return {"s_per_site": secs, "cells": counts}
+
+
 def profile_stages(images, gt_labels, dev, top: int = 20) -> None:
     """``--profile``: each stage of the main path once more, warmed up, first
     timed alone (host clock to a synchronise) and then under torch.profiler;
@@ -1360,6 +1781,7 @@ def profile_stages(images, gt_labels, dev, top: int = 20) -> None:
     stages = {
         "segment": lambda: engine.segment_batch(images),
         "recover": lambda: compute_masks_batch(flows, prob, device=dev),
+        "embed": lambda: engine.embed_sites_pooled(images, list(gt_labels)),
         "measure": lambda: measure_site_batch(images, gt_labels, feature_config(), device=dev),
     }
     for name, fn in stages.items():
@@ -1558,6 +1980,13 @@ def main() -> int:
     sc.reset_launch_counts()
     single = run_single_site(images, gt, dev)
     log("single-site seconds " + json.dumps(single) + f"; launches {dict(sc.LAUNCHES)}")
+
+    sc.reset_launch_counts()
+    embed = run_embed(images, gt, dev)
+    log("embed " + json.dumps(embed) + f"; launches {dict(sc.LAUNCHES)}")
+    sc.reset_launch_counts()
+    cli = run_cli(dev)
+    log("segment-embed CLI " + json.dumps(cli) + f"; launches {dict(sc.LAUNCHES)}")
 
     check_pixel_small_against_cpu(dev)
     sc.reset_launch_counts()

@@ -133,3 +133,64 @@ def test_range_kernels_attributes_each_launch_once(smoke):
     assert by_range == {"measure/a": [1.0, 1, 5.0, 2], "measure/b": [0.0, 0, 3.0, 1],
                         "measure/c": [5.0, 1, 0.0, 0], "measure/d": [0.5, 1, 0.0, 0]}
     assert (port_all, inside) == (5, 2)
+
+
+def test_expected_cells_follow_the_edge_rule(smoke):
+    """The embed phase's expected cells: the 14 x 14 inner nuclei of the
+    16 x 16 grid at 1080² (196 a site), at the port's own centroids."""
+    import torch
+
+    from saguaro_tpu_torch.kernels.crops import in_bounds, label_centroids
+
+    _, gt = smoke.synthetic_sites(2, smoke.SIZE, seed=0)
+    got = smoke.expected_cells(gt)
+    assert [len(ids) for ids, _ in got] == [196, 196]
+    cy, cx, cnt = label_centroids(torch.from_numpy(gt), smoke.MAX_CELLS)
+    keep = (cnt > 0) & in_bounds(cy, cx, smoke.SIZE, smoke.SIZE, smoke.BOX)
+    for s, (ids, yx) in enumerate(got):
+        assert ids.tolist() == keep[s].nonzero().flatten().tolist()
+        np.testing.assert_array_equal(yx, torch.stack([cy[s], cx[s]], -1)[keep[s]].numpy())
+
+
+def test_effnet_cost_and_embed_bound(smoke):
+    """EFFNETV2_L at 480² with the folded one-channel stem: 56.05 GMAC a
+    crop, and 632.4 MB of bf16 activations (every conv output written and
+    read once) plus the f32 input; a one-conv config counted by hand; at
+    chip_smoke's 7,840 crops the stage is bound by its bytes."""
+    from saguaro_tpu_torch.models.effnetv2 import EFFNETV2_L, EffNetV2Config, StageSpec
+
+    macs, n_bytes = smoke.effnet_cost(EFFNETV2_L, 480)
+    assert macs == 56_045_241_408 and n_bytes == 632_390_400
+    tiny = EffNetV2Config(stem_filters=4, stages=(StageSpec("fused", 1, 3, 1, 4, 1),), head_filters=8)
+    # stem 1->4 at 5² (k3 s2 from 9²), fused 4->4 k3, head 4->8 1x1
+    want = 25 * 4 * 9 + 25 * 4 * 4 * 9 + 25 * 8 * 4
+    assert smoke.effnet_cost(tiny, 9) == (want, 4 * 25 * (4 + 4 + 8) + 4 * 81)
+    t, by, flops, total = smoke.embed_bound(7840, EFFNETV2_L, 480, 200)
+    assert by == "bytes" and flops == 2.0 * macs * 7840
+    assert abs(t - total / smoke.HBM_BYTES_PER_S) < 1e-12 and 1.4 < t < 1.6
+
+
+def test_cone_plate_and_gradient_cpnet_find_the_nuclei(smoke, tmp_path):
+    """The CLI phase's plate and CPnet: the written TIFFs read back, and
+    the engine's batch segmentation at its defaults (flow QC on) finds every
+    nucleus of the 8 x 8 grid at 576²."""
+    import pandas as pd
+
+    from saguaro_tpu_torch.io import tiff
+    from saguaro_tpu_torch.models.cellpose import CellposeConfig
+    from saguaro_tpu_torch.models.effnetv2 import EffNetV2Config, StageSpec
+    from saguaro_tpu_torch.pipeline.segment_embed import SegmentEmbedConfig, SegmentEmbedEngine
+
+    images, centres = smoke.cone_sites(1, 576, seed=3)
+    assert images.dtype == np.uint16 and images.shape == (1, 576, 576, 5) and centres.shape == (1, 64, 2)
+    load_data = pd.read_csv(smoke.write_plate(str(tmp_path), images))
+    name = load_data.loc[0, "FileName_ER"]
+    np.testing.assert_array_equal(tiff.imread(str(tmp_path / "Images" / name)), images[0, ..., 2])
+    tiny = EffNetV2Config(stem_filters=4, stages=(StageSpec("fused", 1, 3, 1, 4, 1),), head_filters=1280)
+    engine = SegmentEmbedEngine(SegmentEmbedConfig(channels=list(smoke.CHANNELS), effnet=tiny),
+                                cellpose_state_dict=smoke.gradient_cpnet(CellposeConfig()), device="cpu")
+    labels = engine.segment_batch(images)[0].numpy()
+    at_centres = labels[centres[0, :, 0], centres[0, :, 1]]
+    assert (at_centres > 0).all() and len(set(at_centres.tolist())) == 64
+    ids, _ = smoke.expected_cells(labels[None])[0]
+    assert set(ids.tolist()) >= set(at_centres[(centres[0] >= 100).all(1) & (centres[0] <= 476).all(1)].tolist())

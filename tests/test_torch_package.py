@@ -35,6 +35,13 @@ def test_import_leaves_out_jax_and_reference():
         "import saguaro_tpu_torch.pipeline.segment_embed\n"
         "import saguaro_tpu_torch.pipeline.pixel_stages\n"
         "import saguaro_tpu_torch.cli.estimate_illum\n"
+        "import saguaro_tpu_torch.cli.segment_embed\n"
+        "import saguaro_tpu_torch.kernels.crops\n"
+        "import saguaro_tpu_torch.models.effnetv2\n"
+        "import saguaro_tpu_torch.models.weights\n"
+        "import saguaro_tpu_torch.models.xgb\n"
+        "import saguaro_tpu_torch.pipeline.manifest\n"
+        "import saguaro_tpu_torch.utils.timing\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'saguaro_tpu')]\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
@@ -133,10 +140,22 @@ def _entry_estimate_illumination():
     estimate_illumination(np.zeros((1, 8, 8), np.float32), sigma=1)
 
 
+def _entry_effnet():
+    from saguaro_tpu_torch.models.effnetv2 import init_effnetv2
+
+    init_effnetv2()
+
+
+def _entry_xgb():
+    from saguaro_tpu_torch.models.xgb import XGBEnsemble
+
+    XGBEnsemble.from_json('{"learner": {}}')
+
+
 @pytest.mark.parametrize(
     "entry", [_entry_measure, _entry_engine, _entry_masks, _entry_job, _entry_cellpose,
               _entry_max_projection, _entry_rebin, _entry_illumination_qc,
-              _entry_estimate_illumination]
+              _entry_estimate_illumination, _entry_effnet, _entry_xgb]
 )
 def test_entry_point_without_device_raises_when_cuda_absent(monkeypatch, entry):
     _no_cuda(monkeypatch)

@@ -3,8 +3,8 @@ and single-site segment against the reference engine's, with the same
 CPnet weights (bridged from the reference's flax tree) in f32 on both
 sides. Flow differences of ~1e-5 can move a rounded flow step only at
 exact half-pixel ties, and the Euler steps of the single-site path are
-summed as the reference sums them, so the labels are compared exactly;
-the embed half is refused."""
+summed as the reference sums them, so the labels are compared exactly.
+The embed half is held in test_torch_embed."""
 
 import numpy as np
 import pytest
@@ -116,9 +116,3 @@ def test_single_site_segment_matches_reference(engines, images, monkeypatch, flo
     if flow_error_threshold is not None:
         monkeypatch.setattr(port.cfg, "flow_error_threshold", None)
         assert sum(int(port.segment(i).max()) for i in images) > sum(found)
-
-
-def test_embed_half_refused(engines):
-    _, port = engines
-    with pytest.raises(NotImplementedError, match="embed"):
-        port.embed_sites_pooled(None, None)

@@ -5,6 +5,9 @@ and the port."""
 from __future__ import annotations
 
 import numpy as np
+import torch
+import torch.nn as tnn
+import torch.nn.functional as F
 
 
 def blob_sites(
@@ -326,3 +329,176 @@ def pick2_case(n_ch: int, k: int, seed: int = 0, n: int | None = None):
     lo[:, n // 3 : n // 3 + 40] = 9
     tables = rng.integers(0, 65536, (b, n_ch, 256, 256, k)).astype(np.float32)
     return hi, lo, tables
+
+
+# ----------------------------------------------------------------------------
+# A torch mirror of timm's tf_efficientnetv2 with its original block naming,
+# driven by an EffNetV2Config of either package (a copy of
+# tests/test_weights.py's, which is proven against the flax model there).
+
+def _conv2d_same(x, weight, stride=1, groups=1):
+    """TF-SAME conv, asymmetric padding (timm Conv2dSame semantics)."""
+    ih, iw = x.shape[-2:]
+    kh, kw = weight.shape[-2:]
+    pad_h = max((-ih) % stride + kh - stride if ih % stride == 0 else kh - ih % stride, 0)
+    pad_h = max((kh - stride) if ih % stride == 0 else (kh - ih % stride), 0)
+    pad_w = max((kw - stride) if iw % stride == 0 else (kw - iw % stride), 0)
+    x = F.pad(x, (pad_w // 2, pad_w - pad_w // 2, pad_h // 2, pad_h - pad_h // 2))
+    return F.conv2d(x, weight, stride=stride, groups=groups)
+
+
+class _TConvSame(tnn.Conv2d):
+    def __init__(self, cin, cout, k, stride=1, groups=1):
+        super().__init__(cin, cout, k, stride=stride, groups=groups, bias=False)
+
+    def forward(self, x):
+        return _conv2d_same(x, self.weight, self.stride[0], self.groups)
+
+
+def _tbn(c):
+    return tnn.BatchNorm2d(c, eps=1e-3)
+
+
+class _TConvBnAct(tnn.Module):  # timm ConvBnAct (fused, expand=1, '_skip')
+    def __init__(self, cin, cout, k, stride):
+        super().__init__()
+        self.conv = _TConvSame(cin, cout, k, stride)
+        self.bn1 = _tbn(cout)
+        self.has_skip = stride == 1 and cin == cout
+
+    def forward(self, x):
+        h = F.silu(self.bn1(self.conv(x)))
+        return x + h if self.has_skip else h
+
+
+class _TEdgeResidual(tnn.Module):  # timm EdgeResidual (fused, expand>1)
+    def __init__(self, cin, cout, k, stride, expand):
+        super().__init__()
+        mid = cin * expand
+        self.conv_exp = _TConvSame(cin, mid, k, stride)
+        self.bn1 = _tbn(mid)
+        self.conv_pwl = _TConvSame(mid, cout, 1)
+        self.bn2 = _tbn(cout)
+        self.has_skip = stride == 1 and cin == cout
+
+    def forward(self, x):
+        h = F.silu(self.bn1(self.conv_exp(x)))
+        h = self.bn2(self.conv_pwl(h))
+        return x + h if self.has_skip else h
+
+
+class _TSE(tnn.Module):
+    def __init__(self, mid, rd):
+        super().__init__()
+        self.conv_reduce = tnn.Conv2d(mid, rd, 1)
+        self.conv_expand = tnn.Conv2d(rd, mid, 1)
+
+    def forward(self, x):
+        s = x.mean((2, 3), keepdim=True)
+        s = F.silu(self.conv_reduce(s))
+        return x * torch.sigmoid(self.conv_expand(s))
+
+
+class _TInvertedResidual(tnn.Module):  # timm InvertedResidual (MBConv)
+    def __init__(self, cin, cout, k, stride, expand, se_ratio):
+        super().__init__()
+        mid = cin * expand
+        self.conv_pw = _TConvSame(cin, mid, 1)
+        self.bn1 = _tbn(mid)
+        self.conv_dw = _TConvSame(mid, mid, k, stride, groups=mid)
+        self.bn2 = _tbn(mid)
+        self.se = _TSE(mid, max(1, int(cin * se_ratio)))
+        self.conv_pwl = _TConvSame(mid, cout, 1)
+        self.bn3 = _tbn(cout)
+        self.has_skip = stride == 1 and cin == cout
+
+    def forward(self, x):
+        h = F.silu(self.bn1(self.conv_pw(x)))
+        h = F.silu(self.bn2(self.conv_dw(h)))
+        h = self.se(h)
+        h = self.bn3(self.conv_pwl(h))
+        return x + h if self.has_skip else h
+
+
+class TEffNetV2(tnn.Module):
+    """timm efficientnetv2 mirror driven by an EffNetV2Config."""
+
+    def __init__(self, config: EffNetV2Config):
+        super().__init__()
+        self.conv_stem = _TConvSame(3, config.stem_filters, 3, 2)
+        self.bn1 = _tbn(config.stem_filters)
+        self.blocks = tnn.ModuleList()
+        cin = config.stem_filters
+        for spec in config.stages:
+            stage = tnn.ModuleList()
+            for i in range(spec.count):
+                stride = spec.stride if i == 0 else 1
+                if spec.block == "fused" and spec.expand == 1:
+                    stage.append(_TConvBnAct(cin, spec.filters, spec.kernel, stride))
+                elif spec.block == "fused":
+                    stage.append(
+                        _TEdgeResidual(cin, spec.filters, spec.kernel, stride, spec.expand)
+                    )
+                else:
+                    stage.append(
+                        _TInvertedResidual(
+                            cin, spec.filters, spec.kernel, stride, spec.expand, spec.se_ratio
+                        )
+                    )
+                cin = spec.filters
+            self.blocks.append(stage)
+        self.conv_head = _TConvSame(cin, config.head_filters, 1)
+        self.bn2 = _tbn(config.head_filters)
+
+    def forward(self, x):
+        x = F.silu(self.bn1(self.conv_stem(x)))
+        for stage in self.blocks:
+            for block in stage:
+                x = block(x)
+        x = F.silu(self.bn2(self.conv_head(x)))
+        return x.mean((2, 3))  # pooler_output
+
+
+def xgb_model_json(n_features: int, n_trees: int = 12, max_depth: int = 5, seed: int = 0,
+                   base_score: float = 0.35, objective: str = "binary:logistic") -> str:
+    """A hand-written xgboost >= 1.7 JSON model: ``n_trees`` random trees of
+    uneven depth (each branch stops early with probability 0.3), thresholds
+    around 0 on features drawn from N(0, 1), each split's default (missing
+    value) branch random, leaf values in [-1, 1]."""
+    import json
+
+    rng = np.random.default_rng(seed)
+    trees = []
+    for t in range(n_trees):
+        left, right, feat, cond, dleft = [], [], [], [], []
+
+        def node(depth):
+            i = len(left)
+            for a in (left, right, feat, cond, dleft):
+                a.append(0)
+            if depth == max_depth or (depth > 0 and rng.random() < 0.3):
+                left[i] = right[i] = -1
+                cond[i] = float(rng.uniform(-1, 1))
+                dleft[i] = 1
+                return i
+            feat[i] = int(rng.integers(0, n_features))
+            cond[i] = float(rng.normal(0, 0.5))
+            dleft[i] = int(rng.integers(0, 2))
+            left[i] = node(depth + 1)
+            right[i] = node(depth + 1)
+            return i
+
+        node(0)
+        trees.append({"id": t, "left_children": left, "right_children": right,
+                      "split_indices": feat, "split_conditions": cond, "default_left": dleft,
+                      "tree_param": {"num_nodes": str(len(left)), "num_feature": str(n_features)}})
+    doc = {
+        "learner": {
+            "gradient_booster": {"name": "gbtree", "model": {"trees": trees,
+                                                             "tree_info": [0] * n_trees}},
+            "learner_model_param": {"base_score": f"{base_score:E}", "num_feature": str(n_features)},
+            "objective": {"name": objective},
+        },
+        "version": [1, 7, 6],
+    }
+    return json.dumps(doc)
