@@ -17,8 +17,20 @@ need, whose mean it logs. Then it drives the paths end to end through the user-f
 entry points. Feature extraction: the full-width CPnet segmentation
 engine on 8 synthetic uint16 sites, mask recovery on ground-truth flows
 (untrained weights find no cells), ``measure_site_batch`` at the
-reference's default FeatureConfig (every family on), and
-``run_feature_extraction_job`` on a 2-site plate. Single site:
+reference's default FeatureConfig (every family on). Job grid:
+``run_batch_processing`` over 1 plate x 2 timepoints of 16 sites of
+1080 x 1080 x 5 cone-shaped nuclei written as LZW TIFFs, with the
+full-width engine (``gradient_cpnet``'s CPnet): two batches a job, the
+second dispatched before the first is finalized; every nucleus found, no
+site failure, a resume that runs nothing; sites/s and the wall time's split
+(TIFF read, segment, dispatch, finalize, CSV writing). Profile and hits: the five
+profile CLIs (normalize_cp, feature_select_cosine, pycyto_pertime,
+concat_cp, induction_hit) on the job's CSVs and on a 384-well x 4
+timepoint plate with the job's columns, each held card against CPU, seconds
+a stage (the plots are not drawn where matplotlib is absent, which it logs).
+TIFF: 16 raw 2160 x 2160 uint16 fields, uncompressed and LZW, decoded by
+the native decoder (one after another and on the prefetch pool) and by
+PIL, bit-equal, ms/image. Single site:
 ``SegmentEmbedEngine.segment`` on one site, and Euler ``compute_masks`` on
 a site's ground-truth flows, held against the ground truth and against
 the CPU. Pixel stages: ``run_max_projection``, ``run_rebin``, the
@@ -48,7 +60,8 @@ result.
     python3 chip_smoke.py --profile
 
 also runs each stage once more, warmed up, under torch.profiler and logs
-its device-busy share, the ops with the most device time and, for measure,
+its device-busy share (and the job grid's, one job more into another
+output directory), the ops with the most device time and, for measure,
 the host and device time of each family's ``measure/<family>`` range, the
 port's kernels' share of it apart (it fails unless every one of the port's
 kernels lies inside a range); and the pixel path once more, with its
@@ -66,6 +79,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 
@@ -104,6 +118,15 @@ POOL_BYTES = N_SITES * MAX_CELLS * BOX * BOX * len(CHANNELS) * 4
 # any two crops' f32 embeddings are to each other.
 CPU_CHECK_SIZE = 128
 EMBED_CPU_RTOL = 1e-3
+# objects a well of the profile phase's 384-well plate: a cut from the 256
+# nuclei a site of the job grid. The profile stages read and write every
+# object row as CSV text on the host; at 256 a well the plate's 12 object
+# tables would hold about 14 GB of CSV, which the chain (on the card and
+# again on the CPU) could not read, concatenate and write inside the
+# script's time limit
+PLATE_CELLS = 16
+# segmentation's objects a grid site beyond those placed, at most (1 %)
+GRID_EXTRA_SHARE = 0.01
 
 
 def log(msg: str) -> None:
@@ -1321,46 +1344,343 @@ def check_small_against_cpu(dev):
     log(f"small batch: card vs CPU worst column-relative difference {worst:.3g}")
 
 
-def run_job(images, labels, dev):
-    """run_feature_extraction_job on a 2-site plate written as TIFFs."""
+# --------------------------------------------------------------------------
+# The feature-extraction job grid, the profile-and-hits tail, the TIFF decoder
+
+
+def write_grid_plate(root: str, n_sites: int, size: int, times, seed: int = 21) -> dict:
+    """The job grid's input: for each time a job of ``n_sites`` wells of one
+    site of ``cone_sites``, written as LZW TIFFs under
+    ``root/in/P1_<time>/Images`` with a LoadData CSV carrying the
+    platemap's compound and concentration (every fourth well DMSO), and the
+    platemap at ``root/out/Plate_P1_PlateMap.csv`` for the profile stages.
+    Returns {time: (n_sites, n, 2) nucleus centres (y, x)}."""
     import pandas as pd
 
     from saguaro_tpu_torch.io import tiff
-    from saguaro_tpu_torch.pipeline.feature_extraction import run_feature_extraction_job
+    from tests.torch_data import platemap_frame
 
-    errors = []
+    platemap = platemap_frame("P1", n_sites, dmso_every=4)
+    os.makedirs(os.path.join(root, "out"), exist_ok=True)
+    platemap.to_csv(os.path.join(root, "out", "Plate_P1_PlateMap.csv"), index=False)
+    centres = {}
+    for k, t in enumerate(times):
+        images, centres[t] = cone_sites(n_sites, size, seed=seed + k)
+        job = os.path.join(root, "in", f"P1_{t}")
+        os.makedirs(os.path.join(job, "Images"))
+        rows = []
+        for s, pm in platemap.iterrows():
+            row = {"Metadata_Plate": "P1", "Metadata_Well": pm["Metadata_Well"], "Metadata_Site": 1,
+                   "Metadata_Timepoint": t, "Metadata_Compound": pm["Metadata_Compound"],
+                   "Metadata_ConcLevel": pm["Metadata_ConcLevel"]}
+            for c, ch in enumerate(CHANNELS):
+                name = f"{pm['Metadata_Well']}_s1_{ch}.tiff"
+                tiff.imwrite(os.path.join(job, "Images", name), images[s, ..., c], compression="lzw")
+                row[f"FileName_{ch}"] = name
+            rows.append(row)
+        pd.DataFrame(rows).to_csv(os.path.join(job, "load_data.csv"), index=False)
+    return centres
 
-    class _Count(logging.Handler):
-        def emit(self, record):
-            if record.levelno >= logging.ERROR:
-                errors.append(record.getMessage())
 
-    handler = _Count()
-    logging.getLogger("saguaro_tpu_torch.feature_extraction").addHandler(handler)
+def grid_engine(dev):
+    """The full-width segmentation engine with ``gradient_cpnet``'s CPnet,
+    which finds the cone nuclei."""
+    from saguaro_tpu_torch.models.cellpose import CellposeConfig
+    from saguaro_tpu_torch.pipeline.segment_embed import SegmentEmbedConfig, SegmentEmbedEngine
+
+    return SegmentEmbedEngine(SegmentEmbedConfig(channels=list(CHANNELS)),
+                              cellpose_state_dict=gradient_cpnet(CellposeConfig()), seed=0, device=dev)
+
+
+def run_grid_jobs(root: str, engine, dev, times, out: str = "out", timer=None) -> dict:
+    """``run_batch_processing`` over plate P1 x ``times`` of
+    ``write_grid_plate``'s input, outputs under ``root/<out>``."""
+    from saguaro_tpu_torch.pipeline.feature_extraction import run_batch_processing
+
+    return run_batch_processing(
+        os.path.join(root, "in"), os.path.join(root, out), ["P1"], list(times), list(CHANNELS),
+        image_path_for_job=lambda p, t: f"{p}_{t}/Images",
+        load_data_key_for_job=lambda p, t: f"{p}_{t}/load_data.csv",
+        segmenter=engine, feature_cfg=feature_config(), device=dev, timer=timer)
+
+
+def run_grid(root: str, dev, n_sites: int = 16, size: int = SIZE, times=("6", "24"),
+             profile: bool = False, engine=None) -> dict:
+    """The job grid at full width: ``run_batch_processing`` over 1 plate x
+    ``times`` jobs of ``n_sites`` sites (LZW TIFFs of ``cone_sites``; two
+    batches of 8 a job, the job's default, so a batch is finalized while
+    the next one runs) with the full-width engine (``gradient_cpnet``).
+    Each job wrote its four CSVs, with every placed nucleus found in every
+    site (a Nuclei row centred within 3 px of it), at most
+    ``GRID_EXTRA_SHARE`` of the placed count in objects beyond them (each
+    logged with its area and distance), the site with the most such objects
+    segmented alike on the card and the CPU (``witness_grid_site``), and no
+    site failure; a second call skips both jobs from the manifest and
+    writes nothing. Logs sites/s and the wall time split into
+    TIFF read (with the share of the files that the native decoder
+    covers), segment, dispatch, finalize and CSV writing; with
+    ``profile``, one job more (into another output directory) under
+    torch.profiler gives the device-busy share.
+    ``engine`` defaults to ``grid_engine``'s. Returns the numbers logged."""
+    import pandas as pd
+
+    from saguaro_tpu_torch.io import fast_tiff
+    from saguaro_tpu_torch.utils.timing import StageTimer
+
+    centres = write_grid_plate(root, n_sites, size, times)
+    tiffs = [os.path.join(d, f) for d, _, fs in os.walk(os.path.join(root, "in")) for f in fs
+             if f.endswith(".tiff")]
+    native = sum(fast_tiff.probe(Path(f).read_bytes()) is not None for f in tiffs)
+    engine = engine or grid_engine(dev)
+    errors = ErrorLog()
+    logging.getLogger("saguaro_tpu_torch.feature_extraction").addHandler(errors)
     try:
-        with tempfile.TemporaryDirectory() as root:
-            rows = []
-            for s in range(2):
-                row = {"Metadata_Plate": "P1", "Metadata_Well": f"A0{s + 1}", "Metadata_Site": 1}
-                for c, ch in enumerate(CHANNELS):
-                    name = f"A0{s + 1}_s1_{ch}.tiff"
-                    tiff.imwrite(os.path.join(root, name), images[s, ..., c])
-                    row[f"FileName_{ch}"] = name
-                rows.append(row)
-            masks = {(r["Metadata_Well"]): labels[i] for i, r in enumerate(rows)}
-            order = iter(r["Metadata_Well"] for r in rows)
-            written = run_feature_extraction_job(
-                pd.DataFrame(rows), root, os.path.join(root, "out"), list(CHANNELS),
-                lambda image: masks[next(order)], feature_cfg=feature_config(), device=dev,
-            )
-            tables = {k: pd.read_csv(v) for k, v in written.items()}
+        timer = StageTimer()
+        t0 = time.perf_counter()
+        written = run_grid_jobs(root, engine, dev, times, timer=timer)
+        wall = time.perf_counter() - t0
+        if sorted(written) != [("P1", t) for t in sorted(times)]:
+            raise AssertionError(f"the grid ran jobs {sorted(written)}")
+        found, extras = {}, {}
+        allowed = int(GRID_EXTRA_SHARE * centres[times[0]].shape[1])
+        for (_, t), files in written.items():
+            if sorted(files) != ["Cells", "Cytoplasm", "Image", "Nuclei"]:
+                raise AssertionError(f"job {t} wrote {sorted(files)}")
+            nuclei = pd.read_csv(files["Nuclei"])
+            found[t] = nuclei.groupby("ImageNumber").size().reindex(range(1, n_sites + 1),
+                                                                    fill_value=0).tolist()
+            if 0 in found[t]:
+                raise AssertionError(f"job {t}: a site without nuclei: {found[t]}")
+            for s, site in nuclei.groupby("ImageNumber"):
+                yx = site[["Location_Center_Y", "Location_Center_X"]].to_numpy()
+                near = np.hypot(*(centres[t][s - 1][:, None, :] - yx[None]).transpose(2, 0, 1))
+                missed = int((near.min(axis=1) > 3.0).sum())
+                if missed:
+                    raise AssertionError(f"job {t} site {s}: {missed} placed nuclei not found")
+                # objects no placed nucleus found: their area and how far they
+                # lie from the nearest placed centre
+                extra = np.setdiff1d(np.arange(len(yx)), near.argmin(axis=1))
+                extras[(t, s)] = [(int(site["AreaShape_Area"].iloc[e]), round(float(near[:, e].min()), 1))
+                                  for e in extra]
+                if len(extra) > allowed:
+                    raise AssertionError(f"job {t} site {s}: {len(extra)} objects beyond the placed "
+                                         f"nuclei, more than {allowed}: {extras[(t, s)]}")
+        extra_list = {f"{t}/{s}": e for (t, s), e in extras.items() if e}
+        log("job grid: objects beyond the placed nuclei (area px, px to the nearest placed centre) "
+            + json.dumps(extra_list))
+        witness = witness_grid_site(root, engine, dev, max(extras, key=lambda k: len(extras[k])),
+                                    found)
+        if errors.messages:
+            raise AssertionError(f"the grid recorded site failures: {errors.messages}")
+        stamps = {f: os.path.getmtime(f) for files in written.values() for f in files.values()}
+        if run_grid_jobs(root, engine, dev, times) != {} or \
+                {f: os.path.getmtime(f) for f in stamps} != stamps:
+            raise AssertionError("the resumed grid ran a job again")
+        busy_share = None
+        if profile:
+            from torch.autograd import DeviceType
+            from torch.profiler import ProfilerActivity, profile as trace
+
+            with trace(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t1 = time.perf_counter()
+                run_grid_jobs(root, engine, dev, times[:1], out="out_profiled")
+                traced = time.perf_counter() - t1
+            busy = sum(e.self_device_time_total for e in prof.key_averages()
+                       if e.device_type == DeviceType.CUDA and not e.key.startswith("measure/")) / 1e6
+            busy_share = busy / traced
+            log(f"profile grid, one job of {n_sites} sites: {traced:.4f} s traced, device busy "
+                f"{busy:.4f} s ({100 * busy_share:.1f} %)")
     finally:
-        logging.getLogger("saguaro_tpu_torch.feature_extraction").removeHandler(handler)
-    if sorted(tables) != ["Cells", "Cytoplasm", "Image", "Nuclei"]:
-        raise AssertionError(f"job wrote {sorted(tables)}")
-    if errors or sorted(set(tables["Nuclei"]["ImageNumber"])) != [1, 2]:
-        raise AssertionError(f"job recorded site failures: {errors}")
-    log(f"job: 4 CSVs, Nuclei rows {len(tables['Nuclei'])}, no site failures")
+        logging.getLogger("saguaro_tpu_torch.feature_extraction").removeHandler(errors)
+    n = n_sites * len(times)
+    split = {k: round(v, 4) for k, v in timer.total.items()}
+    split["other"] = round(wall - sum(timer.total.values()), 4)
+    placed = centres[times[0]].shape[1]
+    log(f"job grid: {len(times)} jobs x {n_sites} sites of {size}^2 x {len(CHANNELS)} in {wall:.4f} s, "
+        f"{n / wall:.4f} sites/s; all {placed} placed nuclei found in every site, objects a site "
+        f"{json.dumps(found)}; split (s) {json.dumps(split)}; native TIFF decoder covers {native} "
+        f"of {len(tiffs)} files; the resume ran no job")
+    return {"sites_per_s": n / wall, "wall_s": wall, "split_s": split, "native_files": native,
+            "files": len(tiffs), "device_busy_share": busy_share, "placed": placed, "found": found,
+            "extras": extra_list, "witness": witness}
+
+
+def witness_grid_site(root: str, engine, dev, site: tuple, found: dict) -> dict:
+    """Segment grid site ``site`` = (time, ImageNumber) from its TIFFs as
+    the job does (``segment_batch``: pointer-jumping mask recovery) with
+    ``engine`` on the card and with an engine of its config and CPnet
+    weights on the CPU: the card finds the objects the job found there, and
+    the CPU the same objects (as many, each centroid within 1 px of one of
+    the card's), so objects beyond the placed nuclei are the segmentation's
+    own on both devices. Also logs what the single-site path (``segment``:
+    Euler recovery) finds on the card. Returns the counts and the pixels
+    whose foreground differs."""
+    import pandas as pd
+    from scipy import ndimage
+
+    from saguaro_tpu_torch.io import tiff
+    from saguaro_tpu_torch.pipeline.segment_embed import SegmentEmbedEngine
+
+    t, s = site
+    job = os.path.join(root, "in", f"P1_{t}")
+    row = pd.read_csv(os.path.join(job, "load_data.csv")).iloc[s - 1]
+    image = np.stack([np.asarray(tiff.imread(os.path.join(job, "Images", row[f"FileName_{ch}"])))
+                      for ch in CHANNELS], axis=-1)
+    cpu_engine = SegmentEmbedEngine(engine.cfg, cellpose_state_dict={
+        k: v.cpu() for k, v in engine.cell_model.state_dict().items()}, device="cpu")
+    on_card = engine.segment_batch(image[None])[0].cpu().numpy()
+    on_cpu = cpu_engine.segment_batch(image[None])[0].numpy()
+    euler = int(engine.segment(image).max())
+
+    def centroids(lab):
+        return np.array(ndimage.center_of_mass(lab > 0, lab, np.arange(1, lab.max() + 1)))
+
+    card, cpu = centroids(on_card), centroids(on_cpu)
+    differ = int(((on_card > 0) != (on_cpu > 0)).sum())
+    apart = np.hypot(*(card[:, None, :] - cpu[None]).transpose(2, 0, 1)).min(axis=1)
+    log(f"grid site {t}/{s}: the job found {found[t][s - 1]} objects; segment_batch finds "
+        f"{len(card)} on the card and {len(cpu)} on the CPU (centroids within {apart.max():.3f} px, "
+        f"foreground differs at {differ} pixels); segment (Euler) on the card {euler}")
+    if len(card) != found[t][s - 1] or len(cpu) != len(card) or apart.max() > 1.0:
+        from saguaro_tpu_torch.device import full_f32
+
+        with full_f32():
+            f32 = int(engine.segment_batch(image[None])[0].max())
+        raise AssertionError(f"grid site {t}/{s}: the card's and the CPU's segmentation differ "
+                             f"(on the card without TF32: {f32} objects)")
+    return {"site": f"{t}/{s}", "objects": len(card), "euler_objects": euler,
+            "centroid_px": float(apart.max()), "foreground_px_differ": differ}
+
+
+def run_profile_chain(root: str, times, out: str, dev) -> dict:
+    """The five profile CLIs (``tests.torch_data.profile_cli_args``) over
+    the CP tables under ``root`` with ``--device dev``; returns seconds a
+    stage. Hit calling and its CSV run first; where matplotlib or seaborn
+    is not installed the plots raise ``ModuleNotFoundError``, which is
+    logged as such."""
+    import importlib
+
+    from tests.torch_data import profile_cli_args
+
+    secs = {}
+    for name, argv in profile_cli_args(root, "P1", list(times), out):
+        main = importlib.import_module(f"saguaro_tpu_torch.cli.{name}").main
+        t0 = time.perf_counter()
+        try:
+            main(argv + ["--device", str(dev)])
+        except ModuleNotFoundError as e:
+            if name != "induction_hit" or e.name not in ("matplotlib", "seaborn"):
+                raise
+            log(f"{name} on {dev}: hit calling and Bioactivities_per_plate_doses.csv done; the "
+                f"plots were not drawn: {e.name} is not installed on this machine")
+        secs[name] = time.perf_counter() - t0
+    if not os.path.exists(os.path.join(root, out, "hits", "Bioactivities_per_plate_doses.csv")):
+        raise AssertionError(f"{out}: no Bioactivities CSV")
+    return secs
+
+
+def hold_profile_chain(root: str, times, dev, label: str) -> dict:
+    """``run_profile_chain`` on the card and on the CPU over the same
+    files: the same output files, and every CSV the same table (columns,
+    shape, numbers within ``tests.torch_data.assert_csv_close``'s 1e-5).
+    Returns seconds a stage on the card and on the CPU, and the tables'
+    count and shapes."""
+    from tests.torch_data import assert_csv_close
+
+    on_card = run_profile_chain(root, times, "chain_card", dev)
+    on_cpu = run_profile_chain(root, times, "chain_cpu", "cpu")
+    files = [sorted(os.path.relpath(os.path.join(d, f), os.path.join(root, out))
+                    for d, _, fs in os.walk(os.path.join(root, out)) for f in fs if f.endswith(".csv"))
+             for out in ("chain_card", "chain_cpu")]
+    if files[0] != files[1] or not files[0]:
+        raise AssertionError(f"{label}: the card wrote {files[0]}, the CPU {files[1]}")
+    shapes = {f: assert_csv_close(os.path.join(root, "chain_card", f), os.path.join(root, "chain_cpu", f))
+              for f in files[0]}
+    log(f"profile chain {label}: {len(shapes)} CSVs, card = CPU within 1e-5; seconds on the card "
+        + json.dumps({k: round(v, 4) for k, v in on_card.items()}) + ", on the CPU "
+        + json.dumps({k: round(v, 4) for k, v in on_cpu.items()}) + "; shapes "
+        + json.dumps({os.path.basename(k): v for k, v in shapes.items()}))
+    return {"card_s": on_card, "cpu_s": on_cpu, "csvs": len(shapes)}
+
+
+def run_profile_phase(grid_root: str, dev, times=("6", "24"), n_wells: int = 384,
+                      plate_times=("6", "12", "24", "48"), cells: int = PLATE_CELLS,
+                      seed: int = 31) -> dict:
+    """The profile-and-hits tail on the card: first on the job grid's own
+    CSVs (``grid_root/out``), then on a plate of ``n_wells`` wells x
+    ``plate_times`` (``tests.torch_data.write_cp_plate``: the four tables a
+    well with the column set the job's measurement wrote, ``cells`` objects
+    a well, values from the seed, a platemap of compounds and DMSO wells);
+    each held card against CPU (``hold_profile_chain``)."""
+    import pandas as pd
+
+    from tests.torch_data import write_cp_plate
+
+    out = {"job": hold_profile_chain(os.path.join(grid_root, "out"), times, dev, "on the job's CSVs")}
+    job = os.path.join(grid_root, "out", "P1", times[0])
+    columns = {name: list(pd.read_csv(os.path.join(job, f"{name}.csv"), nrows=0).columns)
+               for name in ("Image", "Nuclei", "Cells", "Cytoplasm")}
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        write_cp_plate(root, "P1", list(plate_times), n_wells, columns, seed=seed, cells=cells,
+                       workers=len(plate_times))
+        log(f"profile plate: {n_wells} wells x {len(plate_times)} timepoints, {cells} objects a "
+            f"well, columns "
+            + json.dumps({k: len(v) for k, v in columns.items()})
+            + f", written in {time.perf_counter() - t0:.1f} s")
+        out["plate"] = hold_profile_chain(root, plate_times, dev, f"at {n_wells} wells")
+    return out
+
+
+def run_tiff_phase(dev, n: int = 16, size: int = RAW, seed: int = 41, workers: int = 8) -> dict:
+    """The TIFF decoder on ``n`` raw ``size``² uint16 fields, written
+    uncompressed and LZW: the native decoder one after another and on the
+    segment-embed prefetch pool (``workers`` threads), and PIL one after
+    another; every decode equal to the field. Returns ms/image of each."""
+    import io
+    import queue
+
+    from PIL import Image
+
+    from saguaro_tpu_torch.io import fast_tiff, tiff
+    from saguaro_tpu_torch.pipeline.segment_embed import _prefetch_sites
+
+    rng = np.random.default_rng(seed)
+    fields = rng.integers(0, 4096, (n, size, size)).astype(np.uint16)
+    fields += synthetic_sites(1, size, seed)[0][0, ..., 0]
+    out = {}
+    with tempfile.TemporaryDirectory() as root:
+        for comp in (None, "lzw"):
+            tag = comp or "raw"
+            paths = []
+            for k in range(n):
+                paths.append(os.path.join(root, f"{tag}_{k}.tiff"))
+                tiff.imwrite(paths[-1], fields[k], compression=comp)
+            blobs = [Path(p).read_bytes() for p in paths]
+            if any(fast_tiff.probe(b) is None for b in blobs):
+                raise AssertionError(f"{tag}: the native decoder does not cover the written files")
+            t0 = time.perf_counter()
+            native = [fast_tiff.decode(b) for b in blobs]
+            out[f"native_{tag}_ms"] = 1e3 * (time.perf_counter() - t0) / n
+            t0 = time.perf_counter()
+            pil = []
+            for b in blobs:
+                with Image.open(io.BytesIO(b)) as im:
+                    pil.append(np.asarray(im))
+            out[f"pil_{tag}_ms"] = 1e3 * (time.perf_counter() - t0) / n
+            q: queue.Queue = queue.Queue()
+            t0 = time.perf_counter()
+            _prefetch_sites([(k, [p]) for k, p in enumerate(paths)], None, workers, q)
+            pooled = dict(q.get(timeout=300) for _ in range(n))
+            out[f"native_{tag}_pool_ms"] = 1e3 * (time.perf_counter() - t0) / n
+            for k in range(n):
+                if not (np.array_equal(native[k], fields[k]) and np.array_equal(pil[k], fields[k])
+                        and pooled[k] is not None and np.array_equal(pooled[k][..., 0], fields[k])):
+                    raise AssertionError(f"{tag} field {k}: the native, PIL and pool decodes differ")
+    log(f"TIFF decode of {n} fields of {size}^2 uint16 (ms/image; the pool's {workers} threads "
+        "include the f32 conversion): " + json.dumps({k: round(v, 3) for k, v in out.items()})
+        + "; native = PIL = the field, bit for bit")
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -1971,10 +2291,6 @@ def main() -> int:
         c = counters[name]
         entry["launches"] = launches[c] if isinstance(c, str) else sites[c[0]].calls[c[1]]
 
-    sc.reset_launch_counts()
-    run_job(images, gt, dev)
-    if min(sc.LAUNCHES[k] for k in measure_kernels) < 1:
-        raise AssertionError(f"the job did not launch every kernel: {sc.LAUNCHES}")
     log("stage seconds per site " + json.dumps(secs))
 
     sc.reset_launch_counts()
@@ -1987,6 +2303,20 @@ def main() -> int:
     sc.reset_launch_counts()
     cli = run_cli(dev)
     log("segment-embed CLI " + json.dumps(cli) + f"; launches {dict(sc.LAUNCHES)}")
+
+    with tempfile.TemporaryDirectory() as grid_root:
+        sc.reset_launch_counts()
+        grid = run_grid(grid_root, dev, profile="--profile" in sys.argv[1:])
+        torch.cuda.synchronize()
+        grid_launches = dict(sc.LAUNCHES)
+        log("job grid " + json.dumps(grid) + f"; launches {grid_launches}")
+        missing = [k for k in measure_kernels if grid_launches[k] < 1]
+        if missing:
+            raise AssertionError(f"the job grid did not launch {missing}")
+        sc.reset_launch_counts()
+        profile_secs = run_profile_phase(grid_root, dev)
+        log("profile phase " + json.dumps(profile_secs) + f"; launches {dict(sc.LAUNCHES)}")
+    log("TIFF phase " + json.dumps(run_tiff_phase(dev)))
 
     check_pixel_small_against_cpu(dev)
     sc.reset_launch_counts()

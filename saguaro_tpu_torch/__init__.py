@@ -10,9 +10,11 @@ on CUDA unless the caller passes ``device="cpu"``.
 
 Ported so far: the feature-extraction path (CPnet segmentation -> flow
 recovery -> CellProfiler-equivalent measurement at the reference's
-default FeatureConfig) and the pixel stages (max projection -> Lanczos
-re-binning -> illumination estimate -> image QC, ``pipeline/pixel_stages``
-and ``cli/``).
+default FeatureConfig) with its job grid (``pipeline/feature_extraction``),
+the embed stage and segment-embed driver, the pixel stages (max
+projection -> Lanczos re-binning -> illumination estimate -> image QC,
+``pipeline/pixel_stages``), the profile-and-hits tail (``ops``,
+``pipeline/profile_stages``, ``pipeline/hits``) and their CLIs (``cli/``).
 """
 
 from saguaro_tpu_torch.device import resolve_device

@@ -1,8 +1,9 @@
-"""TIFF codec built on PIL (tifffile-free).
+"""TIFF codec (tifffile-free; port of ``saguaro_tpu.io.tiff``).
 
-Port of ``saguaro_tpu.io.tiff`` without the native ``fast_tiff`` reader:
-both directions go through PIL (imageio, which the reference decodes
-with, is not needed). Supports uint8/uint16/float inputs.
+TIFFs that the native decoder covers (``io/fast_tiff``: little-endian 8/16
+bits, one sample, strips, none or LZW) decode off the GIL; every other
+file, and encoding, goes through PIL (imageio, the reference's other
+codec, is not needed). Supports uint8/uint16/float inputs.
 """
 
 from __future__ import annotations
@@ -18,7 +19,14 @@ __all__ = ["imread", "imwrite", "decode", "encode"]
 
 def decode(data: bytes) -> np.ndarray:
     """Decode TIFF/PNG/JPEG bytes to an array (the first page), in native
-    byte order."""
+    byte order. A TIFF that the native decoder covers but cannot decode
+    raises ``ValueError``."""
+    if data[:4] in (b"II*\x00", b"MM\x00*"):
+        from saguaro_tpu_torch.io import fast_tiff
+
+        out = fast_tiff.decode(data)
+        if out is not None:
+            return out
     from PIL import Image
 
     with Image.open(io.BytesIO(data)) as pil:

@@ -1,8 +1,10 @@
-"""Classical feature-extraction job (port of
-``saguaro_tpu/pipeline/feature_extraction.py``): one controller walks a
-(plate, time) job's sites, segments each site batch, measures the
-CP-equivalent tables (``pipeline/features``) and writes
-Image/Nuclei/Cells/Cytoplasm.csv under the job's output path.
+"""Classical feature-extraction driver (port of
+``saguaro_tpu/pipeline/feature_extraction.py``), the CellProfiler-fleet
+replacement: ``run_batch_processing`` walks the (plate x time) job grid,
+and each job (``run_feature_extraction_job``) segments its site batches,
+measures the CP-equivalent tables (``pipeline/features``) and writes
+Image/Nuclei/Cells/Cytoplasm.csv under ``<base>/<plate>/<time>/``, the
+layout the profile stages read.
 """
 
 from __future__ import annotations
@@ -17,11 +19,20 @@ import torch
 from saguaro_tpu_torch.device import resolve_device
 from saguaro_tpu_torch.io import storage, tiff
 from saguaro_tpu_torch.io.loaddata import load_illum_functions, site_image_paths
-from saguaro_tpu_torch.pipeline.features import FeatureConfig, measure_site, measure_site_batch
+from saguaro_tpu_torch.parallel.distributed import partition_jobs
+from saguaro_tpu_torch.pipeline.features import (
+    FeatureConfig,
+    measure_site,
+    measure_site_batch_dispatch,
+    measure_site_batch_finalize,
+)
+from saguaro_tpu_torch.pipeline.manifest import Manifest
+from saguaro_tpu_torch.pipeline.pixel_stages import bucket_path
+from saguaro_tpu_torch.utils.timing import StageTimer
 
 logger = logging.getLogger("saguaro_tpu_torch.feature_extraction")
 
-__all__ = ["run_feature_extraction_job", "SystemicFailureError"]
+__all__ = ["run_feature_extraction_job", "run_batch_processing", "SystemicFailureError"]
 
 
 class SystemicFailureError(RuntimeError):
@@ -53,6 +64,7 @@ def run_feature_extraction_job(
     site_batch: int = 8,
     max_failure_fraction: float = 0.5,
     device: str | torch.device | None = None,
+    timer: StageTimer | None = None,
 ) -> dict[str, str]:
     """One (plate, time) job: segment + measure every site, write 4 tables.
 
@@ -61,11 +73,15 @@ def run_feature_extraction_job(
     ``.segment(image)`` and optionally ``.segment_batch(images) -> list``
     (SegmentEmbedEngine); batches of ``site_batch`` same-shape sites are
     then segmented and measured at once on ``device`` (CUDA unless named).
-    A failing batch degrades to per-site work, a failing site to an
-    empty-table placeholder; the same failure on most sites raises
-    ``SystemicFailureError``.
+    A batch is finalized (its result fetched and its tables built) after
+    the next batch is dispatched, so that work overlaps the next batch's
+    device work. A failing batch degrades to per-site work, a failing site
+    to an empty-table placeholder; the same failure on most sites raises
+    ``SystemicFailureError``. ``timer`` accumulates the host seconds of the
+    stages ``read``, ``segment``, ``dispatch``, ``finalize`` and ``write``.
     """
     dev = resolve_device(device)
+    timer = timer or StageTimer()
     cfg = feature_cfg or FeatureConfig(channels=tuple(channels))
     illum = load_illum_functions(illum_path, channels) if illum_path else None
     seg_one = getattr(segmenter, "segment", segmenter)
@@ -93,13 +109,14 @@ def run_feature_extraction_job(
         metadata = {c: row[c] for c in _METADATA_COLS if c in row.index}
         metas[image_number] = metadata
         try:
-            chans = []
-            for k, p in enumerate(site_image_paths(row, channels, image_path)):
-                img = tiff.imread(p).astype(np.float32)
-                if illum and illum[k] is not None and img.shape == illum[k].shape:
-                    img = img / illum[k]
-                chans.append(img)
-            image = np.stack(chans, axis=-1)
+            with timer.stage("read"):
+                chans = []
+                for k, p in enumerate(site_image_paths(row, channels, image_path)):
+                    img = tiff.imread(p).astype(np.float32)
+                    if illum and illum[k] is not None and img.shape == illum[k].shape:
+                        img = img / illum[k]
+                    chans.append(img)
+                image = np.stack(chans, axis=-1)
             buckets.setdefault(image.shape, []).append((image_number, image))
         except Exception as e:
             logger.error("site %d failed: %s", image_number, e)
@@ -116,23 +133,42 @@ def run_feature_extraction_job(
             _record_failure(image_number, e)
             per_site_tables[image_number] = empty_tables(image_number, metas[image_number])
 
+    pending = None
+
+    def _finalize_pending(p):
+        if p is None:
+            return
+        handle, p_nums, p_ok = p
+        try:
+            with timer.stage("finalize"):
+                tables = measure_site_batch_finalize(
+                    handle, image_numbers=p_nums, metadata=[metas[n] for n in p_nums]
+                )
+            for n, t in zip(p_nums, tables):
+                per_site_tables[n] = t
+        except Exception as e:
+            logger.error("batch %s failed (%s); per-site fallback", p_nums, e)
+            for n, im, lb in p_ok:
+                measure_one(n, im, lb)
+
     for items in buckets.values():
         for s in range(0, len(items), site_batch):
             chunk = items[s : s + site_batch]
             labels_list: list = [None] * len(chunk)
-            if seg_batch is not None:
-                try:
-                    labels_list = list(seg_batch(np.stack([im for _, im in chunk])))
-                except Exception as e:
-                    logger.error("batched segmentation failed (%s); per-site fallback", e)
-                    labels_list = [None] * len(chunk)
-            for j, (n, im) in enumerate(chunk):
-                if labels_list[j] is None:
+            with timer.stage("segment"):
+                if seg_batch is not None:
                     try:
-                        labels_list[j] = seg_one(im)
+                        labels_list = list(seg_batch(np.stack([im for _, im in chunk])))
                     except Exception as e:
-                        logger.error("site %d segmentation failed: %s", n, e)
-                        _record_failure(n, e)
+                        logger.error("batched segmentation failed (%s); per-site fallback", e)
+                        labels_list = [None] * len(chunk)
+                for j, (n, im) in enumerate(chunk):
+                    if labels_list[j] is None:
+                        try:
+                            labels_list[j] = seg_one(im)
+                        except Exception as e:
+                            logger.error("site %d segmentation failed: %s", n, e)
+                            _record_failure(n, e)
             ok = [(n, im, lb) for (n, im), lb in zip(chunk, labels_list) if lb is not None]
             for (n, im), lb in zip(chunk, labels_list):
                 if lb is None:
@@ -141,21 +177,25 @@ def run_feature_extraction_job(
                 continue
             nums = [n for n, _, _ in ok]
             try:
-                labels = torch.stack(
-                    [torch.as_tensor(np.asarray(lb) if not isinstance(lb, torch.Tensor) else lb)
-                     .to(device=dev, dtype=torch.int32) for _, _, lb in ok]
-                )
-                tables = measure_site_batch(
-                    np.stack([im for _, im, _ in ok]), labels, cfg,
-                    image_numbers=nums, metadata=[metas[n] for n in nums], device=dev,
-                )
+                with timer.stage("dispatch"):
+                    labels = torch.stack(
+                        [torch.as_tensor(np.asarray(lb) if not isinstance(lb, torch.Tensor) else lb)
+                         .to(device=dev, dtype=torch.int32) for _, _, lb in ok]
+                    )
+                    handle = measure_site_batch_dispatch(
+                        np.stack([im for _, im, _ in ok]), labels, cfg, device=dev
+                    )
             except Exception as e:
-                logger.error("batch %s failed (%s); per-site fallback", nums, e)
+                logger.error("batch %s dispatch failed (%s); per-site fallback", nums, e)
                 for n, im, lb in ok:
                     measure_one(n, im, lb)
                 continue
-            for n, t in zip(nums, tables):
-                per_site_tables[n] = t
+            # the previous batch's fetch and tables overlap this batch's
+            # device work
+            _finalize_pending(pending)
+            pending = (handle, nums, ok)
+
+    _finalize_pending(pending)
 
     if site_failures:
         n_sites = max(len(per_site_tables), 1)
@@ -172,8 +212,71 @@ def run_feature_extraction_job(
             all_tables.setdefault(name, []).append(df)
 
     written = {}
-    for name, dfs in all_tables.items():
-        out = storage.join(output_path, f"{name}.csv")
-        storage.write_csv(pd.concat(dfs, ignore_index=True), out)
-        written[name] = out
+    with timer.stage("write"):
+        for name, dfs in all_tables.items():
+            out = storage.join(output_path, f"{name}.csv")
+            storage.write_csv(pd.concat(dfs, ignore_index=True), out)
+            written[name] = out
     return written
+
+
+def run_batch_processing(
+    bucket_name: str,
+    base_output_path: str,
+    plates: list[str],
+    times: list[str],
+    channels: list[str],
+    image_path_for_job,
+    load_data_key_for_job,
+    segmenter,
+    feature_cfg: FeatureConfig | None = None,
+    resume: bool = True,
+    site_batch: int = 8,
+    devices: int | None = None,
+    device: str | torch.device | None = None,
+    timer: StageTimer | None = None,
+) -> dict[tuple[str, str], dict[str, str]]:
+    """Walk the (plate x time) job grid (the fleet orchestrator's role,
+    Feature_extraction_opt.py:73-145): outputs land at
+    ``<base>/<plate>/<time>/``, each job on ``device`` (CUDA unless named).
+
+    With several processes (``parallel.distributed``), each takes its stride
+    of the grid (``partition_jobs``); the manifest at
+    ``<base>/manifest.jsonl`` makes re-runs skip completed jobs.
+    ``image_path_for_job(plate, time)`` and ``load_data_key_for_job(plate,
+    time)`` encode the project's path conventions (the reference hardcodes
+    them at :153-156). One device only: ``devices`` above 1 raises.
+    """
+    if devices not in (None, 1):
+        raise NotImplementedError(
+            f"devices={devices}: sharding site batches over several devices is not "
+            "ported yet (ROADMAP queue 1 item 4); run on one device"
+        )
+    dev = resolve_device(device)
+    results = {}
+    jobs = partition_jobs([(p, t) for p in plates for t in times])
+    manifest = Manifest(bucket_path(base_output_path, "manifest.jsonl")) if resume else None
+    logger.info("Generated %d jobs (this process)", len(jobs))
+    for plate, time in jobs:
+        unit = f"{plate}/{time}"
+        if manifest is not None and manifest.is_done(unit):
+            logger.info("Job %s already complete; skipping (resume)", unit)
+            continue
+        logger.info("Job %s", unit)
+        load_data = storage.read_csv_sniffed(
+            bucket_path(bucket_name, load_data_key_for_job(plate, time))
+        )
+        results[(plate, time)] = run_feature_extraction_job(
+            load_data,
+            bucket_path(bucket_name, image_path_for_job(plate, time)),
+            bucket_path(base_output_path, unit),
+            channels,
+            segmenter,
+            feature_cfg,
+            site_batch=site_batch,
+            device=dev,
+            timer=timer,
+        )
+        if manifest is not None:
+            manifest.mark_done(unit, n_sites=len(load_data))
+    return results

@@ -67,6 +67,9 @@ __all__ = [
     "FeatureConfig",
     "measure_site",
     "measure_site_batch",
+    "measure_site_batch_dispatch",
+    "measure_site_batch_finalize",
+    "MeasureHandle",
 ]
 
 
@@ -443,31 +446,81 @@ def _as_tensor(x, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
     return torch.as_tensor(arr, device=device).to(dtype)
 
 
-def measure_site_batch(
-    images,
-    nuclei_labels,
-    cfg: FeatureConfig,
-    image_numbers: list[int] | None = None,
-    metadata: list[dict] | None = None,
-    device=None,
-) -> list[dict[str, pd.DataFrame]]:
-    """Measure a same-shape (B, H, W, C) site batch with its (B, H, W)
-    nuclei labels at once on ``device`` (CUDA unless named); returns one
-    {'Image', 'Nuclei', 'Cells', 'Cytoplasm'} table dict per site."""
+@dataclass
+class MeasureHandle:
+    """A dispatched measurement (``measure_site_batch_dispatch``): the result
+    leaves packed into one host buffer per dtype, filled by a copy that
+    ``ready`` (a CUDA event; None on the CPU) marks complete, and where each
+    leaf lies in them."""
+
+    buffers: dict[torch.dtype, torch.Tensor]
+    leaves: list[tuple[tuple[str, ...], torch.dtype, tuple[int, ...], int]]
+    ready: torch.cuda.Event | None
+    n_sites: int
+
+
+def measure_site_batch_dispatch(images, nuclei_labels, cfg: FeatureConfig, device=None
+                                ) -> MeasureHandle:
+    """Measure a same-shape (B, H, W, C) site batch with its (B, H, W) nuclei
+    labels on ``device`` (CUDA unless named) and start fetching the result;
+    returns a handle for ``measure_site_batch_finalize``.
+
+    The result leaves are packed on the device into one buffer per dtype (so
+    integer columns stay exact), and each buffer starts one ``non_blocking``
+    copy into pinned host memory, after which a CUDA event is recorded: the
+    host is free as soon as the work is queued. The measurement itself waits
+    on the device where a fixpoint loop tests convergence. Finalizing this
+    batch after dispatching the next overlaps its copy and table building
+    with the next batch's device work. On the CPU the packed buffers are the
+    host buffers."""
     dev = resolve_device(device)
     cfg = _resolve_integer_grid(cfg, images)
     with torch.no_grad():
         img = _as_tensor(images, torch.float32, dev)
         nuc = _as_tensor(nuclei_labels, torch.int32, dev)
         res = _measure_all(img, nuc, cfg)
-    b = img.shape[0]
-    host = {
-        "objects": {
-            o: {k: v.cpu().numpy() for k, v in feats.items()}
-            for o, feats in res["objects"].items()
-        },
-        "image": {k: v.cpu().numpy() for k, v in res["image"].items()},
-    }
+    flat = [(("objects", o, k), v) for o, feats in res["objects"].items() for k, v in feats.items()]
+    flat += [(("image", k), v) for k, v in res["image"].items()]
+    groups: dict[torch.dtype, list[torch.Tensor]] = {}
+    offsets: dict[torch.dtype, int] = {}
+    leaves = []
+    for key, v in flat:
+        off = offsets.get(v.dtype, 0)
+        offsets[v.dtype] = off + v.numel()
+        leaves.append((key, v.dtype, tuple(v.shape), off))
+        groups.setdefault(v.dtype, []).append(v.reshape(-1))
+    buffers, ready = {}, None
+    for dtype, group in groups.items():
+        packed = torch.cat(group)
+        if dev.type == "cuda":
+            host = torch.empty(packed.shape, dtype=dtype, pin_memory=True)
+            host.copy_(packed, non_blocking=True)
+            packed = host
+        buffers[dtype] = packed
+    if dev.type == "cuda":
+        ready = torch.cuda.Event()
+        ready.record()
+    return MeasureHandle(buffers, leaves, ready, img.shape[0])
+
+
+def measure_site_batch_finalize(
+    handle: MeasureHandle,
+    image_numbers: list[int] | None = None,
+    metadata: list[dict] | None = None,
+) -> list[dict[str, pd.DataFrame]]:
+    """Wait for a dispatched measurement's copy, unpack its leaves and build
+    one {'Image', 'Nuclei', 'Cells', 'Cytoplasm'} table dict per site."""
+    if handle.ready is not None:
+        handle.ready.synchronize()
+    host: dict = {"objects": {}, "image": {}}
+    for key, dtype, shape, off in handle.leaves:
+        n = int(np.prod(shape))
+        arr = handle.buffers[dtype][off : off + n].numpy().reshape(shape)
+        if key[0] == "objects":
+            host["objects"].setdefault(key[1], {})[key[2]] = arr
+        else:
+            host["image"][key[1]] = arr
+    b = handle.n_sites
     image_numbers = image_numbers or list(range(1, b + 1))
     metadata = metadata or [{}] * b
     tables = []
@@ -478,6 +531,22 @@ def measure_site_batch(
         }
         tables.append(_tables_from_result(site, image_numbers[i], metadata[i]))
     return tables
+
+
+def measure_site_batch(
+    images,
+    nuclei_labels,
+    cfg: FeatureConfig,
+    image_numbers: list[int] | None = None,
+    metadata: list[dict] | None = None,
+    device=None,
+) -> list[dict[str, pd.DataFrame]]:
+    """Measure a same-shape (B, H, W, C) site batch with its (B, H, W)
+    nuclei labels at once on ``device`` (CUDA unless named); returns one
+    {'Image', 'Nuclei', 'Cells', 'Cytoplasm'} table dict per site
+    (``measure_site_batch_dispatch`` then ``measure_site_batch_finalize``)."""
+    handle = measure_site_batch_dispatch(images, nuclei_labels, cfg, device=device)
+    return measure_site_batch_finalize(handle, image_numbers, metadata)
 
 
 def measure_site(

@@ -15,6 +15,10 @@ from saguaro_tpu.models import cellpose as ref
 from saguaro_tpu_torch.models import cellpose as port
 from saguaro_tpu_torch.models.weights import cellpose_name_map, cellpose_state_dict_from_flax
 
+from .torch_data import share_cpu_threads
+
+share_cpu_threads()
+
 FEATURES = (8, 16, 32, 64)
 
 

@@ -1,12 +1,12 @@
 """chip_smoke.py without a card: it exits non-zero and prints no result,
 in the repository and in a directory holding nothing else; its main path
-(engine -> mask recovery -> measurement -> job), its single-site phase
-(engine segment, Euler recovery held against the ground truth and the
-CPU) and its pixel path
-(max projection -> re-binning -> illumination estimate -> QC) rehearse on
-the CPU at a small size through the plain forms; and ``--profile``'s
-reading of a trace by ``measure/<family>`` range holds on synthetic
-events."""
+(engine -> mask recovery -> measurement), its job grid (two jobs and the
+resume), its profile phase (on the grid's CSVs and a 24-well plate), its
+TIFF phase, its single-site phase (engine segment, Euler recovery held
+against the ground truth and the CPU) and its pixel path (max projection
+-> re-binning -> illumination estimate -> QC) rehearse on the CPU at a
+small size through the plain forms; and ``--profile``'s reading of a
+trace by ``measure/<family>`` range holds on synthetic events."""
 
 import importlib.util
 import json
@@ -17,6 +17,10 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+
+from .torch_data import share_cpu_threads
+
+share_cpu_threads()
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -67,9 +71,50 @@ def test_small_batch_check_rehearsal_on_cpu(smoke):
     smoke.check_small_against_cpu("cpu")
 
 
-def test_job_rehearsal_on_cpu(smoke):
-    images, gt = smoke.synthetic_sites(2, 200, seed=4)
-    smoke.run_job(images, gt, "cpu")
+@pytest.fixture(scope="module")
+def grid_root(smoke, tmp_path_factory):
+    """The job grid phase at 2 sites of 200² a job, two jobs, with the
+    resume; its engine has a tiny EfficientNet (the phase only segments)."""
+    from saguaro_tpu_torch.models.cellpose import CellposeConfig
+    from saguaro_tpu_torch.models.effnetv2 import EffNetV2Config, StageSpec
+    from saguaro_tpu_torch.pipeline.segment_embed import SegmentEmbedConfig, SegmentEmbedEngine
+
+    tiny = EffNetV2Config(stem_filters=4, stages=(StageSpec("fused", 1, 3, 1, 4, 1),), head_filters=8)
+    engine = SegmentEmbedEngine(SegmentEmbedConfig(channels=list(smoke.CHANNELS), effnet=tiny),
+                                cellpose_state_dict=smoke.gradient_cpnet(CellposeConfig()), device="cpu")
+    root = str(tmp_path_factory.mktemp("grid"))
+    return root, smoke.run_grid(root, "cpu", n_sites=2, size=200, engine=engine)
+
+
+def test_job_rehearsal_on_cpu(grid_root):
+    """The job grid phase: two jobs of 2 sites of 200², every placed nucleus
+    found, no site failure, a resume that runs nothing; the split of its
+    wall time names every stage, and the native decoder took every file."""
+    _, got = grid_root
+    assert got["files"] == got["native_files"] == 2 * 2 * 5
+    assert {"read", "segment", "dispatch", "finalize", "write", "other"} <= set(got["split_s"])
+    assert got["sites_per_s"] > 0 and got["device_busy_share"] is None
+    assert got["placed"] == 4 and all(min(n) >= 4 for n in got["found"].values())
+    assert got["extras"] == {} and got["witness"]["objects"] == 4
+
+
+def test_profile_phase_rehearsal_on_cpu(smoke, grid_root):
+    """The profile phase on the grid's own CSVs and on a 24-well plate with
+    their columns: each CLI's outputs on the 'card' (here the CPU) equal
+    the CPU's."""
+    root, _ = grid_root
+    got = smoke.run_profile_phase(root, "cpu", n_wells=24, plate_times=("6", "24"))
+    for part in ("job", "plate"):
+        assert set(got[part]["card_s"]) == {"normalize_cp", "feature_select_cosine", "pycyto_pertime",
+                                            "concat_cp", "induction_hit"}
+        assert got[part]["csvs"] == 2 + 4 + 3 * 2 + 4
+
+
+def test_tiff_phase_rehearsal_on_cpu(smoke):
+    got = smoke.run_tiff_phase("cpu", n=3, size=96, workers=2)
+    assert set(got) == {f"{w}_{c}{p}_ms" for w, c, p in
+                        [("native", "raw", ""), ("native", "raw", "_pool"), ("pil", "raw", ""),
+                         ("native", "lzw", ""), ("native", "lzw", "_pool"), ("pil", "lzw", "")]}
 
 
 def test_bound_picks_the_larger_time(smoke):

@@ -23,7 +23,9 @@ import torch
 from saguaro_tpu.kernels import colocalization as ref
 from saguaro_tpu_torch.kernels import colocalization as port
 
-from .torch_data import blob_sites, feature_tolerance
+from .torch_data import blob_sites, feature_tolerance, share_cpu_threads
+
+share_cpu_threads()
 
 MC = 16
 PAIRS = ((0, 1), (0, 2), (1, 2))

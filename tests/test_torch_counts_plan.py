@@ -17,6 +17,10 @@ import pytest
 
 from saguaro_tpu_torch.kernels import segment_cuda as sc
 
+from .torch_data import share_cpu_threads
+
+share_cpu_threads()
+
 B, N = 8, 1080 * 1080
 
 MAIN_PATH = {

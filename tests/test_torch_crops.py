@@ -12,7 +12,9 @@ from saguaro_tpu.kernels.crops import extract_crops as ref_extract
 from saguaro_tpu.kernels.crops import label_centroids as ref_centroids
 from saguaro_tpu_torch.kernels.crops import extract_crops, gather_crops, label_centroids
 
-from .torch_data import blob_sites
+from .torch_data import blob_sites, share_cpu_threads
+
+share_cpu_threads()
 
 BOX = 16
 

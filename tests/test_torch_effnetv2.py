@@ -29,7 +29,9 @@ from saguaro_tpu_torch.models.weights import (
 
 from .oracles import scale_to_8bit_oracle, timm_preprocess_oracle
 from .test_torch_cellpose import randomize_bn
-from .torch_data import TEffNetV2
+from .torch_data import TEffNetV2, share_cpu_threads
+
+share_cpu_threads()
 
 # tests/test_weights.py's TINY_EFFNET: fused blocks of expand 1 and 4, an
 # MBConv with SE, three stride-2 convolutions

@@ -31,7 +31,9 @@ from saguaro_tpu_torch.pipeline import segment_embed as se
 
 from .fixtures import make_fake_plate
 from .test_torch_cellpose import randomize_bn
-from .torch_data import blob_sites, xgb_model_json
+from .torch_data import blob_sites, share_cpu_threads, xgb_model_json
+
+share_cpu_threads()
 
 STAGES = (("fused", 1, 3, 1, 4, 1), ("fused", 2, 3, 2, 8, 1), ("mbconv", 2, 3, 2, 8, 2, 0.25))
 FEATURES = (8, 16, 32, 64)

@@ -19,7 +19,9 @@ from saguaro_tpu.pipeline.features import measure_site as ref_measure_site
 from saguaro_tpu.pipeline.features import measure_site_batch as ref_measure
 from saguaro_tpu_torch.pipeline.features import FeatureConfig, measure_site, measure_site_batch
 
-from .torch_data import assert_tables_close, blob_sites
+from .torch_data import assert_tables_close, blob_sites, share_cpu_threads
+
+share_cpu_threads()
 
 SLICE_OFF = dict(
     measure_texture=False, measure_quantiles=False, measure_radius=False,

@@ -15,7 +15,9 @@ import torch
 from saguaro_tpu.kernels import flow_ode as ref
 from saguaro_tpu_torch.kernels import flow_ode as port
 
-from .torch_data import blob_sites
+from .torch_data import blob_sites, share_cpu_threads
+
+share_cpu_threads()
 
 
 @pytest.fixture(scope="module")

@@ -13,7 +13,9 @@ from saguaro_tpu.kernels.fused_measure import fused_object_features as ref_fused
 from saguaro_tpu.kernels.radial import cp_ring_wedge as ref_ring_wedge
 from saguaro_tpu_torch.kernels.fused_measure import fused_object_features
 
-from .torch_data import blob_sites, feature_tolerance
+from .torch_data import blob_sites, feature_tolerance, share_cpu_threads
+
+share_cpu_threads()
 
 MC = 16
 

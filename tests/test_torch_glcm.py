@@ -14,7 +14,9 @@ from saguaro_tpu_torch.kernels import glcm as port
 from saguaro_tpu_torch.kernels.onehot_reduce import mxu_take_t
 from saguaro_tpu_torch.kernels.segment_reduce import _flat
 
-from .torch_data import blob_sites
+from .torch_data import blob_sites, share_cpu_threads
+
+share_cpu_threads()
 
 MC = 16
 

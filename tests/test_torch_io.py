@@ -16,6 +16,10 @@ from saguaro_tpu_torch.io import loaddata, storage, tiff
 from saguaro_tpu_torch.kernels import zernike
 from saguaro_tpu_torch.pipeline.pixel_stages import bucket_path
 
+from .torch_data import share_cpu_threads
+
+share_cpu_threads()
+
 
 def test_csv_roundtrip_and_sniffing(tmp_path):
     df = pd.DataFrame({"a": [1, 2], "b": ["x", "y"]})

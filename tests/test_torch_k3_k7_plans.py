@@ -16,6 +16,10 @@ from saguaro_tpu_torch.kernels import resample as rs
 from saguaro_tpu_torch.kernels import resample_cuda as rc
 from saguaro_tpu_torch.kernels import segment_cuda as sc
 
+from .torch_data import share_cpu_threads
+
+share_cpu_threads()
+
 # ---------------------------------------------------------------------------
 # K3
 

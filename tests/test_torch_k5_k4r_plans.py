@@ -16,7 +16,15 @@ import torch
 from saguaro_tpu_torch.kernels import segment_cuda as sc
 from saguaro_tpu_torch.kernels.shape_extra import _edt_sweep_inputs
 
-from .torch_data import RADIAL_CASES, blob_sites, edt_adversarial_cases, radial_adversarial_site
+from .torch_data import (
+    RADIAL_CASES,
+    blob_sites,
+    edt_adversarial_cases,
+    radial_adversarial_site,
+    share_cpu_threads,
+)
+
+share_cpu_threads()
 
 F32 = np.float32
 

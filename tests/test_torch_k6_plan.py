@@ -19,7 +19,9 @@ import torch
 
 from saguaro_tpu_torch.kernels import segment_cuda as sc
 
-from .torch_data import PICK2_CASES, pick2_case
+from .torch_data import PICK2_CASES, pick2_case, share_cpu_threads
+
+share_cpu_threads()
 
 SOURCE = (Path(sc.__file__).resolve().parents[1] / "csrc" / "pick2.cu").read_text()
 

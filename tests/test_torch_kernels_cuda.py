@@ -32,7 +32,10 @@ from .torch_data import (
     edt_adversarial_cases,
     pick2_case,
     radial_adversarial_site,
+    share_cpu_threads,
 )
+
+share_cpu_threads()
 
 
 @pytest.fixture

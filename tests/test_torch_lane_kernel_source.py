@@ -16,6 +16,10 @@ from saguaro_tpu.kernels import zernike as ref_zernike
 from saguaro_tpu_torch.kernels import segment_cuda as sc
 from saguaro_tpu_torch.kernels import zernike
 
+from .torch_data import share_cpu_threads
+
+share_cpu_threads()
+
 SOURCE = (Path(sc.__file__).resolve().parents[1] / "csrc" / "lane_sums.cu").read_text()
 
 

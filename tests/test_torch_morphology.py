@@ -14,7 +14,9 @@ from saguaro_tpu.kernels import morphology as ref
 from saguaro_tpu.kernels.thresholding import global_threshold as ref_threshold
 from saguaro_tpu_torch.kernels import morphology as port
 
-from .torch_data import blob_sites
+from .torch_data import blob_sites, share_cpu_threads
+
+share_cpu_threads()
 
 
 @pytest.fixture(scope="module")

@@ -17,6 +17,10 @@ import torch
 from saguaro_tpu.kernels import onehot_reduce as ref
 from saguaro_tpu_torch.kernels import onehot_reduce as port
 
+from .torch_data import share_cpu_threads
+
+share_cpu_threads()
+
 B, N, MC = 2, 3000, 16
 
 

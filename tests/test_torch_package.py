@@ -18,6 +18,10 @@ from saguaro_tpu_torch.kernels import resample
 from saguaro_tpu_torch.kernels import segment_cuda as sc
 from saguaro_tpu_torch.pipeline.features import FeatureConfig, measure_site_batch
 
+from .torch_data import share_cpu_threads
+
+share_cpu_threads()
+
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "saguaro_tpu", "bench", "__graft_entry__")
 
@@ -42,7 +46,15 @@ def test_import_leaves_out_jax_and_reference():
         "import saguaro_tpu_torch.models.xgb\n"
         "import saguaro_tpu_torch.pipeline.manifest\n"
         "import saguaro_tpu_torch.utils.timing\n"
-        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'saguaro_tpu')]\n"
+        "import saguaro_tpu_torch.config, saguaro_tpu_torch.io.fast_tiff\n"
+        "import saguaro_tpu_torch.ops, saguaro_tpu_torch.ops.aggregate\n"
+        "import saguaro_tpu_torch.pipeline.profile_stages, saguaro_tpu_torch.pipeline.hits\n"
+        "import saguaro_tpu_torch.parallel.distributed, saguaro_tpu_torch.plots.venn\n"
+        "import saguaro_tpu_torch.cli.feature_extraction, saguaro_tpu_torch.cli.normalize_cp\n"
+        "import saguaro_tpu_torch.cli.pycyto_pertime, saguaro_tpu_torch.cli.concat_cp\n"
+        "import saguaro_tpu_torch.cli.feature_select_cosine, saguaro_tpu_torch.cli.induction_hit\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'saguaro_tpu', "
+        "'matplotlib', 'seaborn')]\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )
@@ -152,10 +164,55 @@ def _entry_xgb():
     XGBEnsemble.from_json('{"learner": {}}')
 
 
+def _entry_grid():
+    from saguaro_tpu_torch.pipeline.feature_extraction import run_batch_processing
+
+    run_batch_processing("x", "y", ["P1"], ["6"], ["DNA"], str, str, lambda im: im)
+
+
+def _entry_dispatch():
+    from saguaro_tpu_torch.pipeline.features import measure_site_batch_dispatch
+
+    measure_site_batch_dispatch(np.zeros((1, 16, 16, 2), np.float32), np.zeros((1, 16, 16), np.int32),
+                                _slice_cfg())
+
+
+def _entry_normalize():
+    import pandas as pd
+
+    from saguaro_tpu_torch.ops import normalize_profiles
+
+    normalize_profiles(pd.DataFrame({"f": [1.0, 2.0]}))
+
+
+def _entry_select():
+    import pandas as pd
+
+    from saguaro_tpu_torch.ops import feature_select
+
+    feature_select(pd.DataFrame({"f": [1.0, 2.0], "g": [2.0, 1.0]}))
+
+
+def _entry_cosine():
+    import pandas as pd
+
+    from saguaro_tpu_torch.ops import group_cosine_similarity
+
+    group_cosine_similarity(pd.DataFrame({"Metadata_Compound": ["a"], "Metadata_Timepoint": ["6"],
+                                          "Metadata_ConcLevel": [1], "f": [1.0]}))
+
+
+def _entry_hits():
+    from saguaro_tpu_torch.pipeline.hits import run_induction_hit
+
+    run_induction_hit("x", "features.csv", "out")
+
+
 @pytest.mark.parametrize(
     "entry", [_entry_measure, _entry_engine, _entry_masks, _entry_job, _entry_cellpose,
               _entry_max_projection, _entry_rebin, _entry_illumination_qc,
-              _entry_estimate_illumination, _entry_effnet, _entry_xgb]
+              _entry_estimate_illumination, _entry_effnet, _entry_xgb, _entry_grid,
+              _entry_dispatch, _entry_normalize, _entry_select, _entry_cosine, _entry_hits]
 )
 def test_entry_point_without_device_raises_when_cuda_absent(monkeypatch, entry):
     _no_cuda(monkeypatch)
@@ -250,3 +307,51 @@ def test_each_default_family_is_measured(flag, value, column):
 def test_pallas_dispatch_pin_refused():
     with pytest.raises(ValueError, match="tensor device"):
         FeatureConfig(channels=("DNA",), pallas_dispatch=True)
+
+
+def test_feature_extraction_cli_refuses_several_devices():
+    from saguaro_tpu_torch.cli.feature_extraction import main
+
+    with pytest.raises(NotImplementedError, match="devices=2"):
+        main(["--bucket_name", "x", "--base_output_path", "y", "--plates", "P1", "--channels", "DNA",
+              "--image_path_template", "{plate}", "--load_data_template", "{plate}.csv",
+              "--devices", "2", "--device", "cpu"])
+
+
+def _calls_share_cpu_threads(tree: ast.Module) -> bool:
+    """A module-level ``share_cpu_threads()`` after its import from
+    ``.torch_data``."""
+    imported = any(isinstance(n, ast.ImportFrom) and n.module == "torch_data" and n.level == 1
+                   and any(a.name == "share_cpu_threads" for a in n.names) for n in tree.body)
+    called = any(isinstance(n, ast.Expr) and isinstance(n.value, ast.Call)
+                 and getattr(n.value.func, "id", None) == "share_cpu_threads" for n in tree.body)
+    return imported and called
+
+
+@pytest.mark.parametrize("path", sorted((ROOT / "tests").glob("test_torch_*.py")),
+                         ids=lambda p: p.name)
+def test_every_torch_test_file_shares_the_cpu_threads(path):
+    """Under pytest-xdist each worker runs torch on its share of the cores
+    (``torch_data.share_cpu_threads``), called by every port test file when
+    it is imported."""
+    assert _calls_share_cpu_threads(ast.parse(path.read_text())), path.name
+
+
+def test_share_cpu_threads_divides_the_cores(monkeypatch):
+    from .torch_data import share_cpu_threads
+
+    before = torch.get_num_threads()
+    try:
+        monkeypatch.setattr(os, "cpu_count", lambda: 8)
+        monkeypatch.setenv("PYTEST_XDIST_WORKER_COUNT", "6")
+        share_cpu_threads()
+        assert torch.get_num_threads() == 1
+        monkeypatch.setenv("PYTEST_XDIST_WORKER_COUNT", "2")
+        share_cpu_threads()
+        assert torch.get_num_threads() == 4
+        monkeypatch.delenv("PYTEST_XDIST_WORKER_COUNT")
+        torch.set_num_threads(3)
+        share_cpu_threads()
+        assert torch.get_num_threads() == 3
+    finally:
+        torch.set_num_threads(before)

@@ -19,6 +19,10 @@ from saguaro_tpu.kernels.qc import qc_metrics as ref_qc
 from saguaro_tpu.kernels.qc import qc_metrics_batch as ref_qc_batch
 from saguaro_tpu_torch.kernels import illum, maxproj, qc
 
+from .torch_data import share_cpu_threads
+
+share_cpu_threads()
+
 
 def test_max_project_exact_uint16():
     stack = np.random.default_rng(0).integers(0, 65535, (3, 40, 52)).astype(np.uint16)

@@ -21,6 +21,10 @@ from saguaro_tpu_torch.pipeline import pixel_stages as ps
 
 from .fixtures import make_fake_plate
 
+from .torch_data import share_cpu_threads
+
+share_cpu_threads()
+
 CHANNELS = ("DNA", "GFP")
 
 

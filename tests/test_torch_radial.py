@@ -13,7 +13,9 @@ import torch
 from saguaro_tpu.kernels import radial as ref
 from saguaro_tpu_torch.kernels import radial as port
 
-from .torch_data import blob_sites
+from .torch_data import blob_sites, share_cpu_threads
+
+share_cpu_threads()
 
 MC = 16
 

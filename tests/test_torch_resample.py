@@ -16,6 +16,10 @@ from saguaro_tpu.kernels.resample import lanczos_resize_batch as ref_resize_batc
 from saguaro_tpu.kernels.resample_pallas import lanczos_resize_pallas
 from saguaro_tpu_torch.kernels import resample as rs
 
+from .torch_data import share_cpu_threads
+
+share_cpu_threads()
+
 
 def _max_unit_diff(a, b):
     return int(np.abs(np.asarray(a).astype(np.int64) - np.asarray(b).astype(np.int64)).max())

@@ -27,7 +27,9 @@ from saguaro_tpu.kernels.zernike import _radial_coeffs as ref_coeffs
 from saguaro_tpu_torch.kernels import segment_cuda as sc
 from saguaro_tpu_torch.kernels.segment_reduce import perimeter_weight_image
 
-from .torch_data import blob_sites
+from .torch_data import blob_sites, share_cpu_threads
+
+share_cpu_threads()
 
 MC = 16
 

@@ -19,7 +19,9 @@ from saguaro_tpu_torch.models.weights import cellpose_state_dict_from_flax
 from saguaro_tpu_torch.pipeline.segment_embed import SegmentEmbedConfig, SegmentEmbedEngine
 
 from .test_torch_cellpose import randomize_bn
-from .torch_data import blob_sites
+from .torch_data import blob_sites, share_cpu_threads
+
+share_cpu_threads()
 
 TINY_EFFNET = EffNetV2Config(
     stem_filters=8,

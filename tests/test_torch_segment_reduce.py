@@ -11,7 +11,9 @@ import torch
 from saguaro_tpu.kernels import segment_reduce as ref
 from saguaro_tpu_torch.kernels import segment_reduce as port
 
-from .torch_data import blob_sites
+from .torch_data import blob_sites, share_cpu_threads
+
+share_cpu_threads()
 
 
 @pytest.fixture(scope="module")

@@ -19,7 +19,9 @@ import torch
 from saguaro_tpu.kernels import shape_extra as ref
 from saguaro_tpu_torch.kernels import shape_extra as port
 
-from .torch_data import blob_sites
+from .torch_data import blob_sites, share_cpu_threads
+
+share_cpu_threads()
 
 MC = 16
 

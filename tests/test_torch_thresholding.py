@@ -22,7 +22,9 @@ from saguaro_tpu_torch.kernels.thresholding import (
     smooth_for_binarize,
 )
 
-from .torch_data import blob_sites
+from .torch_data import blob_sites, share_cpu_threads
+
+share_cpu_threads()
 
 
 @pytest.fixture(scope="module")

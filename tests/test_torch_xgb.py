@@ -9,7 +9,9 @@ import torch
 from saguaro_tpu.models.xgb import XGBEnsemble as RefXGB
 from saguaro_tpu_torch.models.xgb import XGBEnsemble
 
-from .torch_data import xgb_model_json
+from .torch_data import share_cpu_threads, xgb_model_json
+
+share_cpu_threads()
 
 N_FEATURES = 24
 

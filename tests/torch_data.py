@@ -4,10 +4,25 @@ and the port."""
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import torch
 import torch.nn as tnn
 import torch.nn.functional as F
+
+
+def share_cpu_threads() -> None:
+    """Run torch on this test process's share of the cores: under
+    pytest-xdist (``PYTEST_XDIST_WORKER_COUNT`` set), ``cpu_count //
+    workers`` intra-op threads, at least one. Each worker's default pool is
+    as wide as the machine, and several such pools spin against each other
+    at every small op's barrier (a rehearsal that takes 12 s alone did not
+    finish in 150 s with six at once). Outside xdist nothing changes.
+    Every ``tests/test_torch_*.py`` calls it when it is imported."""
+    workers = os.environ.get("PYTEST_XDIST_WORKER_COUNT")
+    if workers:
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // int(workers)))
 
 
 def blob_sites(
@@ -189,8 +204,11 @@ _EXACT = (
 )
 
 
-def feature_tolerance(col: str, ref: np.ndarray, ref_table, h: int, w: int) -> np.ndarray:
-    """Allowed |port - reference| for each row of column ``col``."""
+def feature_tolerance(col: str, ref: np.ndarray, ref_table, h: int, w: int,
+                      hu_floor: float = 0.0) -> np.ndarray:
+    """Allowed |port - reference| for each row of column ``col``; a HuMoment
+    column also allows ``hu_floor`` absolute (for shapes whose Hu moments are
+    zero, so that both sides hold rounding noise)."""
     import re
 
     ref = np.asarray(ref, np.float64)
@@ -212,7 +230,7 @@ def feature_tolerance(col: str, ref: np.ndarray, ref_table, h: int, w: int) -> n
             bound = bound / np.maximum(area, 1.0) ** (1.0 + order / 2.0)
         return 1e-5 * bound + 1e-12
     if "HuMoment" in col:
-        return 1e-3 * np.abs(ref) + 1e-3 * scale
+        return 1e-3 * np.abs(ref) + 1e-3 * scale + hu_floor
     if "Zernike" in col:
         return np.full_like(ref, 1e-5)
     if "MassDisplacement" in col:
@@ -220,9 +238,10 @@ def feature_tolerance(col: str, ref: np.ndarray, ref_table, h: int, w: int) -> n
     return 1e-4 * np.abs(ref) + 1e-4 * scale
 
 
-def assert_tables_close(ref_tables: dict, port_tables: dict, h: int, w: int) -> None:
+def assert_tables_close(ref_tables: dict, port_tables: dict, h: int, w: int,
+                        hu_floor: float = 0.0) -> None:
     """Same table names, column sets and ObjectNumber rows; every numeric
-    column within ``feature_tolerance``."""
+    column within ``feature_tolerance`` (with ``hu_floor``)."""
     import pandas as pd
 
     assert set(ref_tables) == set(port_tables)
@@ -238,7 +257,7 @@ def assert_tables_close(ref_tables: dict, port_tables: dict, h: int, w: int) -> 
                 continue
             r = ref[col].to_numpy(np.float64)
             g = got[col].to_numpy(np.float64)
-            tol = feature_tolerance(col, r, ref, h, w)
+            tol = feature_tolerance(col, r, ref, h, w, hu_floor)
             bad = ~(np.abs(g - r) <= tol)
             assert not bad.any(), (name, col, r[bad][:3], g[bad][:3], tol[bad][:3])
 
@@ -502,3 +521,152 @@ def xgb_model_json(n_features: int, n_trees: int = 12, max_depth: int = 5, seed:
         "version": [1, 7, 6],
     }
     return json.dumps(doc)
+
+
+def platemap_frame(plate: str, n_wells: int, dmso_every: int = 8) -> "pd.DataFrame":
+    """A platemap of wells A01..A24, B01.. (384 wells reach P24): every
+    ``dmso_every``-th well DMSO; the other wells hold compounds
+    ``CPD000``.. at two concentration levels, two replicate wells each."""
+    import pandas as pd
+
+    rows, j = [], 0
+    for i in range(n_wells):
+        well = f"{chr(65 + i // 24)}{i % 24 + 1:02}"
+        if i % dmso_every == 0:
+            compound, conc = "DMSO", 1
+        else:
+            compound, conc = f"CPD{j // 4:03}", 1 + (j // 2) % 2
+            j += 1
+        rows.append({"Metadata_Compound": compound, "Metadata_ConcLevel": conc,
+                     "Metadata_Well": well, "Metadata_Plate": plate})
+    return pd.DataFrame(rows)
+
+
+def write_cp_plate(root: str, plate: str, times: list[str], n_wells: int, columns: dict,
+                   seed: int = 0, cells: int = 2, dmso_every: int = 8,
+                   workers: int = 1) -> "pd.DataFrame":
+    """Profile-stage inputs in the feature-extraction job's layout:
+    ``root/<plate>/<time>/{Image,Nuclei,Cells,Cytoplasm}.csv`` for each
+    time, one site a well and ``cells`` objects a site, with the job's
+    column names ``columns[table]``: ids (``ImageNumber``, ``ObjectNumber``,
+    ``Number_Object_Number``, ``Parent_*``) and ``Metadata_*`` filled from
+    the well, every other column from the seed (a normal around a
+    per-column mean; every fifth compound shifted by 3 sd on a third of the
+    columns, so that hit calling finds it). ``root/Plate_<plate>_PlateMap.csv``
+    is ``platemap_frame``'s, which it returns. Each time draws from its own
+    stream of the seed, so ``workers`` processes (one a time) write the
+    same files as one."""
+    platemap = platemap_frame(plate, n_wells, dmso_every)
+    platemap.to_csv(os.path.join(root, f"Plate_{plate}_PlateMap.csv"), index=False)
+    jobs = [(root, plate, time, k, n_wells, columns, seed, cells, dmso_every)
+            for k, time in enumerate(times)]
+    if workers > 1:
+        import multiprocessing
+        from concurrent.futures import ProcessPoolExecutor
+
+        with ProcessPoolExecutor(min(workers, len(jobs)),
+                                 mp_context=multiprocessing.get_context("spawn")) as pool:
+            list(pool.map(_write_cp_time, *zip(*jobs)))
+    else:
+        for job in jobs:
+            _write_cp_time(*job)
+    return platemap
+
+
+def _write_cp_time(root: str, plate: str, time: str, k: int, n_wells: int, columns: dict,
+                   seed: int, cells: int, dmso_every: int) -> None:
+    """``write_cp_plate``'s four tables of ``time``, the ``k``-th time."""
+    import pandas as pd
+
+    rng = np.random.default_rng([seed, k])
+    platemap = platemap_frame(plate, n_wells, dmso_every)
+    shifted = platemap["Metadata_Compound"].map(
+        lambda c: c != "DMSO" and int(c[3:]) % 5 == 0).to_numpy()
+    out = os.path.join(root, plate, time)
+    os.makedirs(out, exist_ok=True)
+    for name, cols in columns.items():
+        n_obj = 1 if name == "Image" else cells
+        n = n_wells * n_obj
+        well = np.repeat(np.arange(n_wells), n_obj)
+        meta = {"Metadata_Plate": plate, "Metadata_Well": platemap["Metadata_Well"].to_numpy()[well],
+                "Metadata_Site": 1, "Metadata_Timepoint": time,
+                "Metadata_Compound": platemap["Metadata_Compound"].to_numpy()[well],
+                "Metadata_ConcLevel": platemap["Metadata_ConcLevel"].to_numpy()[well]}
+        obj = np.tile(np.arange(1, n_obj + 1), n_wells)
+        data = {}
+        feats = [c for c in cols if not c.startswith("Metadata_")
+                 and c not in ("ImageNumber", "ObjectNumber", "Number_Object_Number")
+                 and not c.startswith("Parent_")]
+        values = rng.normal(rng.normal(0, 5, len(feats)), 1.0, (n, len(feats)))
+        values[np.ix_(shifted[well], np.arange(len(feats)) % 3 == 0)] += 3.0
+        by_name = dict(zip(feats, values.T))
+        for c in cols:
+            if c == "ImageNumber":
+                data[c] = well + 1
+            elif c in ("ObjectNumber", "Number_Object_Number") or c.startswith("Parent_"):
+                data[c] = obj
+            elif c.startswith("Metadata_"):
+                data[c] = meta.get(c, "")
+            else:
+                data[c] = by_name[c]
+        pd.DataFrame(data, columns=list(cols)).to_csv(os.path.join(out, f"{name}.csv"), index=False)
+
+
+def profile_cli_args(root: str, plate: str, times: list[str], out: str) -> list[tuple[str, list[str]]]:
+    """The profile chain over ``write_cp_plate``'s (or a feature-extraction
+    job's) layout under ``root``, as (CLI module name, argv) in order:
+    normalize_cp, feature_select_cosine on its output, pycyto_pertime,
+    concat_cp, and induction_hit on feature_select_cosine's dSig table; every
+    output under ``root/<out>/``."""
+    return [
+        ("normalize_cp", ["--bucket_name", root, "--base_folder", ".", "--plates", plate,
+                          "--times", *times, "--output_bucket", root,
+                          "--output_prefix", f"{out}/normalized"]),
+        ("feature_select_cosine", ["--bucket_name", root, "--base_folder", f"{out}/normalized",
+                                   "--plates", plate, "--exp", "Exp", "--output_bucket", root,
+                                   "--output_prefix", f"{out}/selected"]),
+        ("pycyto_pertime", ["--bucket_name", root, "--base_folder", plate, "--times", *times,
+                            "--output_bucket", root, "--output_prefix", f"{out}/pertime"]),
+        ("concat_cp", ["--bucket_name", root, "--base_folder", plate, "--output_bucket", root,
+                       "--output_prefix", f"{out}/concat", "--times", *times]),
+        ("induction_hit", ["--bucket_name", root,
+                           "--features_key", f"{out}/selected/Exp_CP_features_selected_allTimes_dSig.csv",
+                           "--output_prefix", f"{out}/hits"]),
+    ]
+
+
+def _float_lists(col) -> list | None:
+    """A column of printed float lists (``[np.float32(0.5), ...]``) as
+    arrays, or None when a cell is not one."""
+    out = []
+    for cell in col:
+        text = str(cell)
+        if not (text.startswith("[") and text.endswith("]")):
+            return None
+        body = text[1:-1].replace("np.float32(", "").replace("np.float64(", "").replace(")", "")
+        try:
+            out.append(np.array([float(v) for v in body.split(",") if v.strip()]))
+        except ValueError:
+            return None
+    return out
+
+
+def assert_csv_close(got_path: str, want_path: str, rtol: float = 1e-5) -> tuple[int, int]:
+    """Two CSVs hold the same table: the same columns in the same order and
+    the same rows; numbers within ``rtol`` (``pandas.testing.assert_frame_equal``),
+    printed float lists element by element within ``rtol`` (and 1e-7
+    absolute), every other cell equal. Returns the table's shape."""
+    import pandas as pd
+
+    got, want = pd.read_csv(got_path), pd.read_csv(want_path)
+    assert list(got.columns) == list(want.columns), got_path
+    assert got.shape == want.shape, (got_path, got.shape, want.shape)
+    shape = got.shape
+    for c in got.columns:
+        g, w = _float_lists(got[c]), _float_lists(want[c])
+        if g is not None and w is not None:
+            for a, b in zip(g, w):
+                np.testing.assert_allclose(a, b, rtol=rtol, atol=1e-7, err_msg=f"{got_path}: {c}")
+            got, want = got.drop(columns=c), want.drop(columns=c)
+    pd.testing.assert_frame_equal(got, want, rtol=rtol, obj=got_path)
+    return shape
