@@ -42,7 +42,14 @@ ground-truth labels, every site's cells and centroids checked against
 numpy, timed beside its bound and peak memory, the network held card
 against CPU in f32 and bf16 against f32, one chunk timed in NCHW and
 channels_last; then the segment-embed CLI (``run_pipeline``) on a 2-site
-plate, its four files checked. It
+plate, its four files checked. Training: a small CPnet trained 5 f32 steps
+on the card and on the CPU from the same weights, losses held; then the
+``train_segmenter`` CLI at its full-width defaults (500 steps of 8 tiles
+of 224², bf16) on 32 TIFF pairs of ``synthetic_nuclei``, s/step, images/s,
+the bf16-peak share of its convolutions, peak memory and the flows'
+seconds; its checkpoint, loaded by the full-width engine, segments 4
+held-out tiles and a 1080² field (``segment_batch``), s/site and matched
+IoU; the loss must halve and the IoU exceed 0.5. It
 fails unless each path launched every kernel it runs (K1's and K3's
 launches are logged by call site, with each site's shape), and prints one
 JSON line of per-kernel numbers, the card's name and power limit, and
@@ -2080,6 +2087,183 @@ def run_cli(dev, n_sites: int = 2, size: int = SIZE) -> dict:
     return {"s_per_site": secs, "cells": counts}
 
 
+# --------------------------------------------------------------------------
+# Segmenter training and a checkpoint written on the card
+
+TRAIN_PAIRS = 32            # training (image, mask) pairs
+HELD_OUT = 4                # held-out pairs
+TRAIN_TILE = 224            # the CLI's default tile
+TRAIN_NUCLEI = 20           # synthetic_nuclei's draws a tile (overlaps are dropped)
+FIELD_NUCLEI = 480          # its draws on the 1080² field: about 400 placed
+TRAIN_IOU = 0.5             # tests/test_train.py:82
+# 5 f32 steps (TF32 off) of a small CPnet, card against CPU from the same
+# weights and batches: the losses agree to this relative tolerance. Adam's
+# first steps move each weight by about the learning rate in the direction
+# of its gradient's sign, so weights whose gradients are near zero, whose
+# sign the summation order decides, move apart by up to twice the rate; on
+# an NVIDIA H100 80GB HBM3 the third step's loss differed by 7.7e-5
+TRAIN_CPU_RTOL = 1e-3
+
+
+def iou_matched(gt: np.ndarray, pred: np.ndarray) -> float:
+    """Mean best-match IoU over the ground truth's cells
+    (tests/test_train.py's ``_iou_matched``)."""
+    ious = []
+    for lab in np.unique(gt[gt > 0]):
+        m = gt == lab
+        ids, counts = np.unique(pred[m], return_counts=True)
+        ids, counts = ids[ids > 0], counts[ids > 0]
+        if ids.size == 0:
+            ious.append(0.0)
+            continue
+        p = pred == ids[np.argmax(counts)]
+        ious.append(np.logical_and(m, p).sum() / np.logical_or(m, p).sum())
+    return float(np.mean(ious)) if ious else 0.0
+
+
+def cpnet_conv_flops(config, size: int) -> float:
+    """Forward FLOPs of one image through CPnet's convolutions at size x
+    size, from the config's layer shapes (2 per multiply-add; the style
+    Linear layers and the elementwise work left out)."""
+    nbase = [config.n_channels, *config.features]
+    up = [*config.features, config.features[-1]]
+
+    def block(cin, cout, side):  # proj 1x1, conv_0 3x3, conv_1..3 3x3
+        return 2 * side * side * (cin * cout * (1 + 9) + 3 * cout * cout * 9)
+
+    flops = sum(block(nbase[n], nbase[n + 1], size >> n) for n in range(len(config.features)))
+    flops += sum(block(up[n], up[n - 1], size >> (n - 1)) for n in range(1, len(up)))
+    return flops + 2 * size * size * up[0] * 3
+
+
+def write_training_pairs(root: str, n: int, size: int, n_cells: int, rng) -> list:
+    """``n`` pairs ``img<i>.tiff`` (channel 0 of ``synthetic_nuclei`` x 1000
+    as uint16) + ``img<i>_masks.tiff`` under ``root``, as the reference's
+    CLI test writes them; returns the label images."""
+    from saguaro_tpu_torch.io import tiff
+    from saguaro_tpu_torch.models.cellpose_train import synthetic_nuclei
+
+    os.makedirs(root, exist_ok=True)
+    labels = []
+    for i in range(n):
+        img, lab = synthetic_nuclei(rng, size=size, n_cells=n_cells)
+        tiff.imwrite(os.path.join(root, f"img{i}.tiff"), (img[..., 0] * 1000).astype(np.uint16))
+        tiff.imwrite(os.path.join(root, f"img{i}_masks.tiff"), lab.astype(np.uint16))
+        labels.append(lab)
+    return labels
+
+
+def segment_trained(engine, images) -> tuple[list, float]:
+    """``segment_batch`` on (B, H, W) uint16 images (one channel; the
+    network's second is zero), warmed up once: labels and seconds a site."""
+    import torch
+
+    x = np.asarray(images)[..., None]
+    engine.segment_batch(x)
+    if engine.device.type == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    labels = [lab.cpu().numpy() for lab in engine.segment_batch(x)]
+    return labels, (time.perf_counter() - t0) / len(labels)
+
+
+def run_training(dev, root: str, n_train: int = TRAIN_PAIRS, n_held: int = HELD_OUT,
+                 size: int = TRAIN_TILE, steps: int = 500, batch: int = 8, field: int = SIZE,
+                 field_nuclei: int = FIELD_NUCLEI, effnet=None, seed: int = 51) -> dict:
+    """The segmenter trained on the card through ``train_segmenter``'s
+    ``main`` at the CLI's full-width defaults (CPnet features 32-256, bf16,
+    tile ``size``, batch ``batch``, ``steps`` steps, learning rate 1e-3)
+    on ``n_train`` TIFF pairs of ``synthetic_nuclei``; then
+    the checkpoint it wrote, loaded by a full-width engine through
+    ``cellpose_checkpoint=`` (diameter = the net's diam_mean: the images
+    are at the training scale), segments ``n_held`` held-out tiles and one
+    ``field`` x ``field`` field with ``segment_batch`` (pointer-jumping
+    recovery, flow QC). Returns the phase's numbers; ``check_training``
+    holds them."""
+    import torch
+
+    from saguaro_tpu_torch.cli.train_segmenter import main as train_segmenter
+    from saguaro_tpu_torch.io import tiff
+    from saguaro_tpu_torch.models.cellpose import CellposeConfig
+    from saguaro_tpu_torch.models.cellpose_train import synthetic_nuclei
+    from saguaro_tpu_torch.pipeline.segment_embed import SegmentEmbedConfig, SegmentEmbedEngine
+
+    rng = np.random.default_rng(seed)
+    write_training_pairs(os.path.join(root, "train"), n_train, size, TRAIN_NUCLEI, rng)
+    held = write_training_pairs(os.path.join(root, "held"), n_held, size, TRAIN_NUCLEI, rng)
+    ckpt = os.path.join(root, "cpnet.ckpt")
+    on_card = torch.device(dev).type == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    result, timer = train_segmenter([
+        "--data_dir", os.path.join(root, "train"), "--output", ckpt, "--steps", str(steps),
+        "--batch_size", str(batch), "--tile", str(size), "--device", str(dev)])
+    peak = torch.cuda.max_memory_allocated() / 1e9 if on_card else None
+    warm = result.step_seconds[10:] or result.step_seconds
+    s_step = float(np.median(warm))
+    flops = 3 * batch * cpnet_conv_flops(CellposeConfig(tile=size), size)
+
+    cfg = SegmentEmbedConfig(channels=["DNA"], cellpose_checkpoint=ckpt,
+                             diameter=CellposeConfig().diam_mean, **({"effnet": effnet} if effnet else {}))
+    engine = SegmentEmbedEngine(cfg, device=dev)
+    imgs = [tiff.imread(os.path.join(root, "held", f"img{i}.tiff")) for i in range(n_held)]
+    held_labels, held_s = segment_trained(engine, imgs)
+    img, field_gt = synthetic_nuclei(rng, size=field, n_cells=field_nuclei)
+    field_labels, field_s = segment_trained(engine, [(img[..., 0] * 1000).astype(np.uint16)])
+    return {
+        "steps": len(result.losses), "first_loss": result.losses[0], "last_loss": result.losses[-1],
+        "s_per_step": s_step, "images_per_s": batch / s_step,
+        "bf16_peak_share": flops / s_step / BF16_OPS_PER_S, "step_tflop": flops / 1e12,
+        "peak_gb": peak, "flows_s": timer.total["flows"], "train_s": timer.total["train"],
+        "held_iou": float(np.mean([iou_matched(g, p) for g, p in zip(held, held_labels)])),
+        "held_objects": [int(p.max()) for p in held_labels], "held_placed": [int(g.max()) for g in held],
+        "held_s_per_site": held_s, "field_iou": iou_matched(field_gt, field_labels[0]),
+        "field_objects": int(field_labels[0].max()), "field_placed": int(field_gt.max()),
+        "field_s_per_site": field_s,
+    }
+
+
+def check_training(got: dict) -> None:
+    """The reference's criteria (tests/test_train.py:70, :82): the last loss
+    below half the first, a mean matched IoU above ``TRAIN_IOU`` on the
+    held-out tiles and on the field."""
+    if not got["last_loss"] < 0.5 * got["first_loss"]:
+        raise AssertionError(f"training did not halve its loss: {got['first_loss']:.4f} -> "
+                             f"{got['last_loss']:.4f}")
+    for part in ("held", "field"):
+        if not got[f"{part}_iou"] > TRAIN_IOU:
+            raise AssertionError(f"the trained net's {part} IoU {got[part + '_iou']:.3f} <= {TRAIN_IOU}")
+
+
+def hold_training_against_cpu(dev, steps: int = 5, size: int = 64) -> float:
+    """A small CPnet (features 8-64, tile ``size``, f32, TF32 off) trained
+    ``steps`` steps on the card and on the CPU from the same seeded weights
+    and batches: the largest relative difference of the losses, which must
+    stay within ``TRAIN_CPU_RTOL``."""
+    from saguaro_tpu_torch.device import full_f32
+    from saguaro_tpu_torch.models.cellpose import CellposeConfig
+    from saguaro_tpu_torch.models.cellpose_train import masks_to_flows, synthetic_nuclei, train_cellpose
+
+    rng = np.random.default_rng(52)
+    images, flows, probs = [], [], []
+    for _ in range(8):
+        img, lab = synthetic_nuclei(rng, size=size, n_cells=4)
+        images.append(img)
+        flows.append(masks_to_flows(lab, device="cpu"))
+        probs.append((lab > 0).astype(np.float32))
+    data = (np.stack(images), np.stack(flows), np.stack(probs))
+    cfg = CellposeConfig(tile=size, features=(8, 16, 32, 64), compute_dtype="float32")
+    with full_f32():
+        card = train_cellpose(*data, cfg, n_steps=steps, batch_size=4, learning_rate=1e-3, device=dev)
+        cpu = train_cellpose(*data, cfg, n_steps=steps, batch_size=4, learning_rate=1e-3, device="cpu")
+    worst = float(np.max(np.abs(np.subtract(card.losses, cpu.losses)) / np.abs(cpu.losses)))
+    log(f"training card vs CPU ({steps} f32 steps, features 8-64, {size}²): losses {card.losses} vs "
+        f"{cpu.losses}, worst relative difference {worst:.3g} (tolerance {TRAIN_CPU_RTOL})")
+    if worst > TRAIN_CPU_RTOL:
+        raise AssertionError(f"card and CPU training differ by {worst:.3g} relative")
+    return worst
+
+
 def profile_stages(images, gt_labels, dev, top: int = 20) -> None:
     """``--profile``: each stage of the main path once more, warmed up, first
     timed alone (host clock to a synchronise) and then under torch.profiler;
@@ -2303,6 +2487,13 @@ def main() -> int:
     sc.reset_launch_counts()
     cli = run_cli(dev)
     log("segment-embed CLI " + json.dumps(cli) + f"; launches {dict(sc.LAUNCHES)}")
+
+    hold_training_against_cpu(dev)
+    with tempfile.TemporaryDirectory() as train_root:
+        sc.reset_launch_counts()
+        training = run_training(dev, train_root)
+        log("training " + json.dumps(training) + f"; launches {dict(sc.LAUNCHES)}")
+    check_training(training)
 
     with tempfile.TemporaryDirectory() as grid_root:
         sc.reset_launch_counts()

@@ -39,9 +39,11 @@ def main(argv=None):
     parser.add_argument("--max_cells", type=int, default=512,
                         help="Static per-site cell bound.")
     parser.add_argument("--cellpose_checkpoint", type=str, default=None,
-                        help="cellpose CPnet checkpoint (a torch file).")
+                        help="cellpose CPnet checkpoint: the package's own format "
+                             "(train_segmenter's) or a torch file.")
     parser.add_argument("--effnet_checkpoint", type=str, default=None,
-                        help="EfficientNetV2 checkpoint (a timm or transformers torch file).")
+                        help="EfficientNetV2 checkpoint: the package's own format or a timm "
+                             "or transformers torch file.")
     parser.add_argument("--spill_dir", type=str, default=None,
                         help="Per-site npz spill + manifest for resumable runs.")
     parser.add_argument("--devices", type=int, default=None,

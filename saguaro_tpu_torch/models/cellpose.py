@@ -37,6 +37,8 @@ __all__ = [
     "normalize_input",
     "segment_image",
     "segment_image_batch",
+    "flow_loss",
+    "train_step",
 ]
 
 
@@ -379,3 +381,34 @@ def segment_image(
         model, image[None], config, diameter=diameter, at_network_resolution=at_network_resolution
     )
     return flows[0], cellprob[0], None
+
+
+# ----------------------------------------------------------------------------
+# Training (flow regression)
+
+
+def flow_loss(pred: torch.Tensor, target_flows: torch.Tensor, target_prob: torch.Tensor) -> torch.Tensor:
+    """Cellpose's objective on NHWC tensors: the MSE of the flows against 5x
+    the (B, H, W, 2) targets plus a numerically stable BCE of the cellprob
+    logit against the (B, H, W) targets."""
+    mse = torch.mean((pred[..., :2] - 5.0 * target_flows) ** 2)
+    logits = pred[..., 2]
+    bce = torch.mean(
+        torch.clamp(logits, min=0) - logits * target_prob + torch.log1p(torch.exp(-torch.abs(logits)))
+    )
+    return mse + bce
+
+
+def train_step(model: CellposeUNet, optimizer: torch.optim.Optimizer, batch) -> torch.Tensor:
+    """One optimiser step on ``batch`` = (images (B, H, W, C), target flows
+    (B, H, W, 2), target cellprob (B, H, W)); returns the step's loss,
+    detached. The model stays in eval mode: its BatchNorms normalise by
+    their stored statistics, which training leaves as they are (the
+    reference feeds fixed ``batch_stats``); gradients reach the f32 weights
+    through the casts to the compute dtype."""
+    images, target_flows, target_prob = batch
+    optimizer.zero_grad(set_to_none=True)
+    loss = flow_loss(model(images), target_flows, target_prob)
+    loss.backward()
+    optimizer.step()
+    return loss.detach()

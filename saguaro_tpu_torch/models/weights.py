@@ -1,201 +1,311 @@
-"""Weight bridge: the JAX package's flax variables -> this package's state
-dicts (CellposeUNet and EffNetV2), and the torch checkpoint files both
+"""Weight layouts between flax variable trees and torch state dicts (port of
+``saguaro_tpu/models/weights.py``), and the torch checkpoint files both
 networks take.
 
-The inverse of the reference's checkpoint conversion
-(``saguaro_tpu/models/weights.py`` layout converters under
-``cellpose_weights.cellpose_name_map`` and
-``effnet_weights.effnet_name_map``): both packages can then run identical
-weights without a checkpoint file. The name maps are copied here so that
-this package imports nothing of the JAX one.
+The reference module converts torch-style state dicts to flax trees:
+
+* layout converters (OIHW -> HWIO convolutions, depthwise convolutions,
+  Linear transposes); here also both directions on torch tensors
+  (``torch_to_flax_layout``, ``flax_to_torch_layout``), which the
+  checkpoint format and the flax bridge use;
+* ``convert_state_dict``: a state dict onto a flax variables tree through an
+  explicit name map, with strict shape checks;
+* ``convert_by_order``: the structural fallback that pairs tensors by
+  traversal order and shape signature, reporting every decision.
+
+Those work on numpy arrays, as in the reference. This package's networks
+carry the torch key layouts themselves (cellpose's CPnet keys, timm's
+EfficientNetV2 keys), so the flax trees are needed only at the edges: the
+JAX package's variables bridged onto a state dict (``state_dict_from_flax``)
+and its checkpoint format (``models/checkpoint.py``). The name maps, the
+torch-file loaders and the flax -> torch bridges of each network live in
+``models/cellpose_weights.py`` and ``models/effnet_weights.py``; their
+names stay importable from here.
 """
 
 from __future__ import annotations
 
+import importlib
 import io
+import pickle
+from typing import Callable
 
 import numpy as np
 import torch
 
 from saguaro_tpu_torch.io import storage
-from saguaro_tpu_torch.models.cellpose import CellposeConfig
-from saguaro_tpu_torch.models.effnetv2 import EFFNETV2_L, EffNetV2Config
 
 __all__ = [
+    "conv_torch_to_flax",
+    "depthwise_torch_to_flax",
+    "linear_torch_to_flax",
+    "flatten_tree",
+    "unflatten_tree",
+    "convert_state_dict",
+    "convert_by_order",
+    "torch_to_flax_layout",
+    "flax_to_torch_layout",
+    "state_dict_from_flax",
+    "read_torch_state_dict",
+    "strip_prefixes",
     "cellpose_name_map",
     "cellpose_state_dict_from_flax",
+    "load_cellpose_checkpoint",
     "effnet_name_map",
     "effnet_state_dict_from_flax",
-    "load_cellpose_checkpoint",
     "load_effnet_checkpoint",
 ]
 
 # wrappers' key prefixes (transformers' TimmWrapperModel, DataParallel, ...)
-_PREFIXES = ("timm_model.", "module.", "model.")
-# the JAX package's own checkpoint format (``saguaro_tpu/models/checkpoint.py``)
-_FLAX_MAGIC = b"SGTPU1\n"
+PREFIXES = ("timm_model.", "module.", "model.")
+
+# names defined by the per-network modules, importable from here:
+# {name here: (module, name there)}
+_MOVED = {
+    "cellpose_name_map": ("cellpose_weights", "cellpose_name_map"),
+    "cellpose_state_dict_from_flax": ("cellpose_weights", "cellpose_state_dict_from_flax"),
+    "load_cellpose_checkpoint": ("cellpose_weights", "load_torch_cellpose"),
+    "effnet_name_map": ("effnet_weights", "effnet_name_map"),
+    "effnet_state_dict_from_flax": ("effnet_weights", "effnet_state_dict_from_flax"),
+    "load_effnet_checkpoint": ("effnet_weights", "load_torch_effnet"),
+}
 
 
-def cellpose_name_map(config: CellposeConfig = CellposeConfig()) -> dict[str, str]:
-    """{flax flat key: CPnet state-dict key} for every parameter (cellpose
-    resnet_torch naming; BatchNorm scale/bias/mean/var map to
-    weight/bias/running_mean/running_var)."""
-    m: dict[str, str] = {}
-
-    def bn(flax_prefix: str, torch_prefix: str) -> None:
-        m[f"params/{flax_prefix}/scale"] = f"{torch_prefix}.weight"
-        m[f"params/{flax_prefix}/bias"] = f"{torch_prefix}.bias"
-        m[f"batch_stats/{flax_prefix}/mean"] = f"{torch_prefix}.running_mean"
-        m[f"batch_stats/{flax_prefix}/var"] = f"{torch_prefix}.running_var"
-
-    def conv(flax_prefix: str, torch_prefix: str) -> None:
-        m[f"params/{flax_prefix}/kernel"] = f"{torch_prefix}.weight"
-        m[f"params/{flax_prefix}/bias"] = f"{torch_prefix}.bias"
-
-    for n in range(len(config.features)):
-        fd, td = f"res_down_{n}", f"downsample.down.res_down_{n}"
-        bn(f"{fd}/proj/bn", f"{td}.proj.0")
-        conv(f"{fd}/proj/conv", f"{td}.proj.1")
-        for t in range(4):
-            bn(f"{fd}/conv_{t}/bn", f"{td}.conv.conv_{t}.0")
-            conv(f"{fd}/conv_{t}/conv", f"{td}.conv.conv_{t}.2")
-
-        fu, tu = f"res_up_{n}", f"upsample.up.res_up_{n}"
-        bn(f"{fu}/proj/bn", f"{tu}.proj.0")
-        conv(f"{fu}/proj/conv", f"{tu}.proj.1")
-        bn(f"{fu}/conv_0/bn", f"{tu}.conv.conv_0.0")
-        conv(f"{fu}/conv_0/conv", f"{tu}.conv.conv_0.2")
-        for t in range(1, 4):
-            bn(f"{fu}/conv_{t}/conv/bn", f"{tu}.conv.conv_{t}.conv.0")
-            conv(f"{fu}/conv_{t}/conv/conv", f"{tu}.conv.conv_{t}.conv.2")
-            m[f"params/{fu}/conv_{t}/full/kernel"] = f"{tu}.conv.conv_{t}.full.weight"
-            m[f"params/{fu}/conv_{t}/full/bias"] = f"{tu}.conv.conv_{t}.full.bias"
-
-    bn("output/bn", "output.0")
-    conv("output/conv", "output.2")
-    return m
+def __getattr__(name: str):
+    """The per-network names, imported on first use (those modules import
+    this one)."""
+    if name not in _MOVED:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    module, attr = _MOVED[name]
+    return getattr(importlib.import_module(f"saguaro_tpu_torch.models.{module}"), attr)
 
 
-def _flatten(tree, prefix: str = "") -> dict[str, np.ndarray]:
+def conv_torch_to_flax(w: np.ndarray) -> np.ndarray:
+    """(O, I, kh, kw) -> (kh, kw, I, O)."""
+    return np.transpose(np.asarray(w), (2, 3, 1, 0))
+
+
+def depthwise_torch_to_flax(w: np.ndarray) -> np.ndarray:
+    """torch depthwise (C, 1, kh, kw) -> flax feature-grouped (kh, kw, 1, C)."""
+    return np.transpose(np.asarray(w), (2, 3, 1, 0))
+
+
+def linear_torch_to_flax(w: np.ndarray) -> np.ndarray:
+    """(out, in) -> (in, out)."""
+    return np.transpose(np.asarray(w))
+
+
+def flatten_tree(tree, prefix: str = "") -> dict[str, np.ndarray]:
+    """Flax variables tree -> {'a/b/c': array}."""
     out: dict[str, np.ndarray] = {}
     if isinstance(tree, dict) or hasattr(tree, "items"):
         for k, v in tree.items():
-            out.update(_flatten(v, f"{prefix}{k}/"))
+            out.update(flatten_tree(v, f"{prefix}{k}/"))
     else:
         out[prefix[:-1]] = np.asarray(tree)
     return out
 
 
-def _state_dict_from_flax(variables_as_numpy: dict, name_map: dict[str, str]) -> dict[str, torch.Tensor]:
-    """Conv kernels (kh, kw, I, O) -> (O, I, kh, kw) (depthwise (kh, kw, 1,
-    C) -> (C, 1, kh, kw) by the same transpose); Dense kernels (in, out) ->
-    (out, in); vectors copy. Every mapped key must be present."""
-    flat = _flatten(variables_as_numpy)
-    sd: dict[str, torch.Tensor] = {}
-    for fkey, tkey in name_map.items():
-        a = np.asarray(flat[fkey], np.float32)
-        if a.ndim == 4:
-            a = np.transpose(a, (3, 2, 0, 1))
-        elif a.ndim == 2:
-            a = a.T
-        sd[tkey] = torch.from_numpy(np.ascontiguousarray(a))
-    return sd
+def unflatten_tree(flat: dict[str, np.ndarray]) -> dict:
+    out: dict = {}
+    for key, val in flat.items():
+        node = out
+        parts = key.split("/")
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = val
+    return out
 
 
-def cellpose_state_dict_from_flax(
-    variables_as_numpy: dict, config: CellposeConfig = CellposeConfig()
-) -> dict[str, torch.Tensor]:
-    """flax ``{'params': ..., 'batch_stats': ...}`` tree of numpy arrays ->
-    CPnet state dict."""
-    return _state_dict_from_flax(variables_as_numpy, cellpose_name_map(config))
+def convert_state_dict(
+    state_dict: dict[str, np.ndarray],
+    flax_variables: dict,
+    name_map: dict[str, str],
+    transforms: dict[str, Callable[[np.ndarray], np.ndarray]] | None = None,
+) -> dict:
+    """Explicit-table conversion.
+
+    name_map: {flax_flat_key: torch_key}; transforms: optional per-flax-key
+    layout converter (default: inferred from rank — 4D conv transpose, 2D
+    linear transpose, 1D copy). Shape mismatches raise.
+    """
+    transforms = transforms or {}
+    flat = flatten_tree(flax_variables)
+    new_flat: dict[str, np.ndarray] = {}
+    for fkey, cur in flat.items():
+        if fkey not in name_map:
+            new_flat[fkey] = cur
+            continue
+        t = np.asarray(state_dict[name_map[fkey]])
+        if fkey in transforms:
+            t = transforms[fkey](t)
+        elif t.ndim == 4:
+            t = (
+                depthwise_torch_to_flax(t)
+                if t.shape[1] == 1 and cur.shape[2] == 1
+                else conv_torch_to_flax(t)
+            )
+        elif t.ndim == 2 and t.shape != cur.shape:
+            t = linear_torch_to_flax(t)
+        if t.shape != cur.shape:
+            raise ValueError(
+                f"{fkey}: converted shape {t.shape} != expected {cur.shape} "
+                f"(torch key {name_map[fkey]})"
+            )
+        new_flat[fkey] = t.astype(cur.dtype)
+    return unflatten_tree(new_flat)
 
 
-def effnet_name_map(config: EffNetV2Config = EFFNETV2_L) -> dict[str, str]:
-    """{flax flat key: timm key} for every parameter of the config (flax
-    linen auto-naming of the reference's modules: ``_ConvBNAct_0`` stem,
-    ``_FusedMBConv_i``/``_MBConv_j`` blocks, ``_ConvBNAct_1`` head)."""
-    m: dict[str, str] = {}
-
-    def bn(flax_prefix: str, torch_prefix: str) -> None:
-        m[f"params/{flax_prefix}/scale"] = f"{torch_prefix}.weight"
-        m[f"params/{flax_prefix}/bias"] = f"{torch_prefix}.bias"
-        m[f"batch_stats/{flax_prefix}/mean"] = f"{torch_prefix}.running_mean"
-        m[f"batch_stats/{flax_prefix}/var"] = f"{torch_prefix}.running_var"
-
-    def convbnact(flax_prefix: str, conv_key: str, bn_key: str) -> None:
-        m[f"params/{flax_prefix}/Conv_0/kernel"] = f"{conv_key}.weight"
-        bn(f"{flax_prefix}/BatchNorm_0", bn_key)
-
-    convbnact("_ConvBNAct_0", "conv_stem", "bn1")
-    fused_i = mb_i = 0
-    for s, spec in enumerate(config.stages):
-        for i in range(spec.count):
-            t = f"blocks.{s}.{i}"
-            if spec.block == "fused":
-                f = f"_FusedMBConv_{fused_i}"
-                fused_i += 1
-                if spec.expand == 1:
-                    convbnact(f"{f}/_ConvBNAct_0", f"{t}.conv", f"{t}.bn1")
-                else:
-                    convbnact(f"{f}/_ConvBNAct_0", f"{t}.conv_exp", f"{t}.bn1")
-                    convbnact(f"{f}/_ConvBNAct_1", f"{t}.conv_pwl", f"{t}.bn2")
-            else:
-                f = f"_MBConv_{mb_i}"
-                mb_i += 1
-                convbnact(f"{f}/_ConvBNAct_0", f"{t}.conv_pw", f"{t}.bn1")
-                m[f"params/{f}/Conv_0/kernel"] = f"{t}.conv_dw.weight"
-                bn(f"{f}/BatchNorm_0", f"{t}.bn2")
-                if spec.se_ratio > 0:
-                    m[f"params/{f}/_SE_0/Conv_0/kernel"] = f"{t}.se.conv_reduce.weight"
-                    m[f"params/{f}/_SE_0/Conv_0/bias"] = f"{t}.se.conv_reduce.bias"
-                    m[f"params/{f}/_SE_0/Conv_1/kernel"] = f"{t}.se.conv_expand.weight"
-                    m[f"params/{f}/_SE_0/Conv_1/bias"] = f"{t}.se.conv_expand.bias"
-                convbnact(f"{f}/_ConvBNAct_1", f"{t}.conv_pwl", f"{t}.bn3")
-    convbnact("_ConvBNAct_1", "conv_head", "bn2")
-    return m
+def _signature(shape: tuple[int, ...]) -> tuple:
+    """Order-insensitive conv/linear signature for structural pairing."""
+    return (len(shape), tuple(sorted(shape)))
 
 
-def effnet_state_dict_from_flax(
-    variables_as_numpy: dict, config: EffNetV2Config = EFFNETV2_L
-) -> dict[str, torch.Tensor]:
-    """The reference's unfolded EffNetV2 variables (``{'params': ...,
-    'batch_stats': ...}`` of numpy arrays) -> an ``EffNetV2`` state dict in
-    timm's key layout."""
-    return _state_dict_from_flax(variables_as_numpy, effnet_name_map(config))
+def _interleaved_flax_keys(flat: dict[str, np.ndarray]) -> list[str]:
+    """Order flax leaves the way a torch state dict orders tensors.
+
+    flatten_tree yields all of ``params/`` before ``batch_stats/``, but
+    torch emits each BatchNorm's running stats right after its
+    weight/bias. Re-interleave: walk params in module order and splice
+    each module's batch_stats (mean then var) in as the module ends.
+    """
+    params = [k for k in flat if k.startswith("params/")]
+    stats_by_mod: dict[str, list[str]] = {}
+    for k in flat:
+        if k.startswith("params/"):
+            continue
+        mod = k.split("/", 1)[1].rsplit("/", 1)[0]
+        stats_by_mod.setdefault(mod, []).append(k)
+    leaf_rank = {"mean": 0, "var": 1}
+    for v in stats_by_mod.values():
+        v.sort(key=lambda k: leaf_rank.get(k.rsplit("/", 1)[1], 99))
+
+    out: list[str] = []
+    prev_mod: str | None = None
+    for k in params:
+        mod = k.split("/", 1)[1].rsplit("/", 1)[0]
+        if prev_mod is not None and mod != prev_mod and prev_mod in stats_by_mod:
+            out.extend(stats_by_mod.pop(prev_mod))
+        out.append(k)
+        prev_mod = mod
+    if prev_mod is not None and prev_mod in stats_by_mod:
+        out.extend(stats_by_mod.pop(prev_mod))
+    for rem in stats_by_mod.values():
+        out.extend(rem)
+    return out
 
 
-def _load_torch_state_dict(path: str) -> dict[str, torch.Tensor]:
-    """A torch checkpoint file (local or through ``io.storage``) -> its state
-    dict on the CPU: ``state_dict`` and ``model`` wrappers unwrapped, the
-    wrappers' key prefixes stripped. The JAX package's own msgpack format
-    raises ``ValueError``."""
+def convert_by_order(
+    state_dict: dict[str, np.ndarray],
+    flax_variables: dict,
+    skip_torch: Callable[[str], bool] | None = None,
+) -> tuple[dict, list[str]]:
+    """Structural conversion: pair torch tensors with flax leaves in
+    traversal order when their shape signatures match.
+
+    Returns (converted variables, report lines). Tensors that cannot be
+    paired are reported and left at their initialized values — the report
+    is the parity-debugging artifact.
+    """
+    flat = flatten_tree(flax_variables)
+    torch_items = [
+        (k, np.asarray(v))
+        for k, v in state_dict.items()
+        if not (skip_torch and skip_torch(k)) and hasattr(v, "shape")
+    ]
+    report: list[str] = []
+    used = [False] * len(torch_items)
+    new_flat: dict[str, np.ndarray] = {}
+    for fkey in _interleaved_flax_keys(flat):
+        cur = flat[fkey]
+        sig = _signature(cur.shape)
+        found = None
+        for j in range(len(torch_items)):
+            tk, tv = torch_items[j]
+            if used[j]:
+                continue
+            conv = tv
+            if tv.ndim == 4:
+                conv = (
+                    depthwise_torch_to_flax(tv)
+                    if tv.shape[1] == 1 and cur.ndim == 4 and cur.shape[2] == 1
+                    else conv_torch_to_flax(tv)
+                )
+            elif tv.ndim == 2 and tv.shape != cur.shape:
+                conv = linear_torch_to_flax(tv)
+            if conv.shape == cur.shape and _signature(tv.shape) == sig:
+                found = (j, tk, conv)
+                break
+        if found is None:
+            report.append(f"UNMATCHED flax {fkey} {cur.shape}")
+            new_flat[fkey] = cur
+        else:
+            j, tk, conv = found
+            used[j] = True
+            report.append(f"{fkey} <- {tk} {tuple(conv.shape)}")
+            new_flat[fkey] = conv.astype(cur.dtype)
+    for j, (tk, tv) in enumerate(torch_items):
+        if not used[j]:
+            report.append(f"UNUSED torch {tk} {tuple(tv.shape)}")
+    return unflatten_tree(new_flat), report
+
+
+def torch_to_flax_layout(t: torch.Tensor) -> torch.Tensor:
+    """A torch leaf in its flax layout, by rank: convolution weights (O, I,
+    kh, kw) -> (kh, kw, I, O) (depthwise (C, 1, kh, kw) -> (kh, kw, 1, C)
+    by the same transpose), Linear weights (out, in) -> (in, out), vectors
+    as they are. Every 2-D leaf of both networks is a Linear weight, square
+    ones included (res_up_3's style layers), so the rank alone decides."""
+    if t.dim() == 4:
+        return t.permute(2, 3, 1, 0).contiguous()
+    if t.dim() == 2:
+        return t.t().contiguous()
+    return t
+
+
+def flax_to_torch_layout(t: torch.Tensor) -> torch.Tensor:
+    """The inverse of ``torch_to_flax_layout``."""
+    if t.dim() == 4:
+        return t.permute(3, 2, 0, 1).contiguous()
+    if t.dim() == 2:
+        return t.t().contiguous()
+    return t
+
+
+def state_dict_from_flax(variables_as_numpy: dict, name_map: dict[str, str]) -> dict[str, torch.Tensor]:
+    """A flax ``{'params': ..., 'batch_stats': ...}`` tree of numpy arrays ->
+    a state dict under ``name_map`` ({flax flat key: torch key}), every leaf
+    in its torch layout, f32. Every mapped key must be present."""
+    flat = flatten_tree(variables_as_numpy)
+    return {tkey: flax_to_torch_layout(torch.tensor(np.asarray(flat[fkey], np.float32)))
+            for fkey, tkey in name_map.items()}
+
+
+def read_torch_state_dict(path: str) -> dict[str, torch.Tensor]:
+    """A torch checkpoint file (local or through ``io.storage``) -> its
+    tensors on the CPU: ``state_dict`` and ``model`` wrappers unwrapped, the
+    wrappers' key prefixes stripped. Only tensors and plain containers are
+    unpickled (``weights_only=True``); a file that is no torch save raises
+    ``ValueError``."""
     blob = storage.read_bytes(path)
-    if blob.startswith(_FLAX_MAGIC):
-        raise ValueError(
-            f"{path} is a saguaro_tpu (flax msgpack) checkpoint; the port does not read that "
-            "format yet (ROADMAP queue 1 item 4)"
-        )
-    obj = torch.load(io.BytesIO(blob), map_location="cpu", weights_only=True)
+    try:
+        obj = torch.load(io.BytesIO(blob), map_location="cpu", weights_only=True)
+    except (pickle.UnpicklingError, RuntimeError, EOFError) as e:
+        raise ValueError(f"{path} is not a torch file (a saguaro_tpu checkpoint reads with "
+                         f"models.checkpoint.load_variables): {e}") from e
     for key in ("state_dict", "model"):
         if isinstance(obj, dict) and isinstance(obj.get(key), dict):
             obj = obj[key]
-    sd = {k: v for k, v in obj.items() if isinstance(v, torch.Tensor)}
-    for prefix in _PREFIXES:
-        if any(k.startswith(prefix) for k in sd):
-            sd = {(k[len(prefix):] if k.startswith(prefix) else k): v for k, v in sd.items()}
-    return sd
+    if not isinstance(obj, dict):
+        raise ValueError(f"{path} holds a {type(obj).__name__}, not a state dict")
+    return strip_prefixes({k: v for k, v in obj.items() if isinstance(v, torch.Tensor)})
 
 
-def load_cellpose_checkpoint(path: str) -> dict[str, torch.Tensor]:
-    """A cellpose CPnet file -> a ``CellposeUNet`` state dict (cellpose's
-    stored diameters, which are not weights, dropped)."""
-    sd = _load_torch_state_dict(path)
-    return {k: v for k, v in sd.items() if k not in ("diam_mean", "diam_labels")}
-
-
-def load_effnet_checkpoint(path: str) -> dict[str, torch.Tensor]:
-    """A timm or transformers EfficientNetV2 file -> an ``EffNetV2`` state
-    dict in timm's keys (the classifier, which the pooled embedding does not
-    use, dropped)."""
-    sd = _load_torch_state_dict(path)
-    return {k: v for k, v in sd.items() if not k.startswith("classifier.")}
+def strip_prefixes(state_dict: dict) -> dict:
+    """Drop the wrappers' key prefixes (``PREFIXES``), each where any key
+    carries it."""
+    for prefix in PREFIXES:
+        if any(k.startswith(prefix) for k in state_dict):
+            state_dict = {(k[len(prefix):] if k.startswith(prefix) else k): v
+                          for k, v in state_dict.items()}
+    return state_dict

@@ -23,9 +23,13 @@ Semantics reproduced op by op:
 * drop_outliers (outlier_cutoff=500): drop features with any
   |value| > cutoff.
 
-The O(F^2 N) correlation matrix is the hot spot and runs as masked f32
-matmuls (TF32 off) on the caller's device; the greedy pair logic is tiny
-host work.
+The O(F^2 N) correlation matrix is the hot spot and runs as masked f64
+matmuls on the caller's device (the reference's are f32): the selection's
+threshold and ranking are discrete, and in f32 the summation orders of
+the card and the CPU flip a pair near the threshold often enough that the
+two devices kept different columns. The rank sums are rounded to 1e-9
+before the stable sort, so that identical columns tie on every device and
+keep their column order. The greedy pair logic is tiny host work.
 """
 
 from __future__ import annotations
@@ -34,7 +38,7 @@ import numpy as np
 import pandas as pd
 import torch
 
-from saguaro_tpu_torch.device import full_f32, resolve_device
+from saguaro_tpu_torch.device import resolve_device
 from saguaro_tpu_torch.ops.normalize import split_feature_columns
 
 __all__ = ["feature_select", "nan_aware_correlation", "DEFAULT_OPERATIONS"]
@@ -52,16 +56,15 @@ def _masked_corr(x: torch.Tensor) -> torch.Tensor:
 
     For every column pair (i, j) the statistics are computed over rows where
     both are non-NaN, matching pandas ``DataFrame.corr``. All terms are
-    (F, F) f32 matmuls of the masked data.
+    (F, F) f64 matmuls of the masked data.
     """
     nan = torch.isnan(x)
-    m = (~nan).to(torch.float32)
-    x0 = torch.where(nan, 0.0, x).to(torch.float32)
-    with full_f32():
-        n = m.T @ m
-        sx = x0.T @ m          # sum of x_i over joint support (i rows, j cols)
-        sxy = x0.T @ x0
-        sxx = (x0 * x0).T @ m
+    m = (~nan).to(torch.float64)
+    x0 = torch.where(nan, 0.0, x).to(torch.float64)
+    n = m.T @ m
+    sx = x0.T @ m          # sum of x_i over joint support (i rows, j cols)
+    sxy = x0.T @ x0
+    sxx = (x0 * x0).T @ m
     # covariance and variances over the joint support
     cov = sxy - sx * sx.T / n
     var_i = sxx - sx * sx / n
@@ -72,8 +75,8 @@ def _masked_corr(x: torch.Tensor) -> torch.Tensor:
 
 
 def nan_aware_correlation(values: np.ndarray, device: str | torch.device | None = None) -> np.ndarray:
-    """Pairwise-complete correlation of the columns of (N, F) ``values`` in
-    f32 on ``device`` (CUDA unless named), returned on the host."""
+    """Pairwise-complete correlation of the columns of (N, F) ``values`` (f32)
+    in f64 on ``device`` (CUDA unless named), returned on the host."""
     dev = resolve_device(device)
     x = torch.tensor(np.asarray(values, dtype=np.float32), device=dev)
     return _masked_corr(x).cpu().numpy()
@@ -112,7 +115,10 @@ def _correlation_threshold(
     abs_corr = np.abs(corr)
     # pycytominer: rank features by total |corr| ascending; for each
     # over-threshold pair drop the later-ranked (larger-sum) member.
-    cor_sum = np.nansum(abs_corr, axis=1)
+    # Identical columns (a channel's copy, a measurement in two object
+    # tables) have equal sums up to rounding, which differs by device;
+    # rounded, they tie exactly and the stable sort keeps column order.
+    cor_sum = np.round(np.nansum(abs_corr, axis=1), 9)
     order = np.argsort(cor_sum, kind="stable")
     rank = np.empty(len(features), dtype=int)
     rank[order] = np.arange(len(features))

@@ -71,7 +71,9 @@ from saguaro_tpu_torch.models.effnetv2 import (
     init_effnetv2,
     preprocess_crops,
 )
-from saguaro_tpu_torch.models.weights import load_cellpose_checkpoint, load_effnet_checkpoint
+from saguaro_tpu_torch.models.cellpose_weights import load_torch_cellpose
+from saguaro_tpu_torch.models.checkpoint import NotACheckpoint, load_variables
+from saguaro_tpu_torch.models.effnet_weights import load_torch_effnet
 from saguaro_tpu_torch.models.xgb import XGBEnsemble
 from saguaro_tpu_torch.pipeline.manifest import Manifest
 from saguaro_tpu_torch.utils.timing import StageTimer
@@ -109,7 +111,9 @@ class SegmentEmbedConfig:
     save_coords: bool = False
     single_cell: bool = False
     xgb_model_path: str | None = None
-    cellpose_checkpoint: str | None = None   # torch files (cellpose's, timm's)
+    # checkpoint files: the package's own format (``models/checkpoint``,
+    # what ``cli/train_segmenter`` writes) or a torch file (cellpose's, timm's)
+    cellpose_checkpoint: str | None = None
     effnet_checkpoint: str | None = None
     devices: int | None = None         # one device; a mesh is not ported
     fold_bn: bool = True               # fold inference BN into the conv weights
@@ -123,6 +127,18 @@ class SegmentEmbedConfig:
                 f"devices={self.devices}: sharding site batches over several devices is not "
                 "ported yet (ROADMAP queue 1 item 4); run on one device"
             )
+
+
+def _read_checkpoint(path: str, model: torch.nn.Module, load_torch) -> dict:
+    """A checkpoint file's state dict for ``model``, in the reference's
+    order: the package's own format first, then a torch file
+    (``load_torch``). A file in neither format raises ``ValueError``."""
+    try:
+        state_dict, _ = load_variables(path, model)
+    except NotACheckpoint:
+        state_dict = load_torch(path)
+    logger.info("Loaded checkpoint %s", path)
+    return state_dict
 
 
 def _load_weights(model: torch.nn.Module, state_dict: dict, what: str) -> None:
@@ -148,26 +164,27 @@ class SegmentEmbedEngine:
         device: str | torch.device | None = None,
     ):
         """``cellpose_state_dict``: CPnet weights in cellpose's key layout (a
-        cellpose checkpoint, or ``models.weights.cellpose_state_dict_from_flax``);
+        cellpose checkpoint, or ``models.cellpose_weights.cellpose_state_dict_from_flax``);
         ``effnet_state_dict``: unfolded EffNetV2 weights in timm's key layout
-        (a timm checkpoint, or ``models.weights.effnet_state_dict_from_flax``).
-        Without one, the config's checkpoint path is read, and without that
-        the network gets seeded random weights. The EffNetV2's BatchNorms and
+        (a timm checkpoint, or ``models.effnet_weights.effnet_state_dict_from_flax``).
+        Without one, the config's checkpoint file is read (the package's own
+        format first, then a torch file, as the reference reads them), and
+        without that the network gets seeded random weights. The EffNetV2's BatchNorms and
         RGB stem are folded here, once, on ``device``, as the config says."""
         self.cfg = cfg
         self.device = resolve_device(device)
         self.cell_model = init_cellpose(cfg.cellpose, seed=seed, device=self.device)
         if cellpose_state_dict is None and cfg.cellpose_checkpoint:
-            cellpose_state_dict = load_cellpose_checkpoint(cfg.cellpose_checkpoint)
-            logger.info("Loaded cellpose checkpoint %s", cfg.cellpose_checkpoint)
+            cellpose_state_dict = _read_checkpoint(cfg.cellpose_checkpoint, self.cell_model,
+                                                   load_torch_cellpose)
         if cellpose_state_dict is not None:
             _load_weights(self.cell_model, cellpose_state_dict, "cellpose")
         self.cell_model = self.cell_model.to(self.device).eval()
 
         self.feat_model = init_effnetv2(cfg.effnet, seed=seed, device=self.device)
         if effnet_state_dict is None and cfg.effnet_checkpoint:
-            effnet_state_dict = load_effnet_checkpoint(cfg.effnet_checkpoint)
-            logger.info("Loaded effnet checkpoint %s", cfg.effnet_checkpoint)
+            effnet_state_dict = _read_checkpoint(cfg.effnet_checkpoint, self.feat_model,
+                                                 load_torch_effnet)
         if effnet_state_dict is not None:
             _load_weights(self.feat_model, effnet_state_dict, "effnet")
         if cfg.fold_bn:

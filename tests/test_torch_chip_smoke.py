@@ -117,6 +117,91 @@ def test_tiff_phase_rehearsal_on_cpu(smoke):
                          ("native", "lzw", ""), ("native", "lzw", "_pool"), ("pil", "lzw", "")]}
 
 
+def test_training_rehearsal_on_cpu(smoke, tmp_path):
+    """The training phase at 64² (4 pairs, 12 steps of 2) with a 128² field
+    and a tiny EfficientNet in the engine: ``train_segmenter`` writes the
+    checkpoint, the engine loads it and segments; the numbers come back
+    finite. Learning itself is held on the card (``check_training``)."""
+    from saguaro_tpu_torch.models.effnetv2 import EffNetV2Config, StageSpec
+
+    tiny = EffNetV2Config(stem_filters=4, stages=(StageSpec("fused", 1, 3, 1, 4, 1),), head_filters=8)
+    got = smoke.run_training("cpu", str(tmp_path), n_train=4, n_held=2, size=64, steps=12, batch=2,
+                             field=128, field_nuclei=6, effnet=tiny)
+    assert got["steps"] == 12 and got["peak_gb"] is None
+    assert len(got["held_objects"]) == 2 and got["field_placed"] >= 1
+    numbers = [v for k, v in got.items() if isinstance(v, float)]
+    assert len(numbers) >= 12 and np.isfinite(numbers).all()
+    assert got["s_per_step"] > 0 and got["flows_s"] > 0 and 0 < got["bf16_peak_share"]
+    with pytest.raises(AssertionError, match="IoU|halve"):
+        smoke.check_training({**got, "first_loss": 1.0, "last_loss": 0.4, "held_iou": 0.4})
+
+
+def test_training_hold_rehearsal_on_cpu(smoke):
+    assert smoke.hold_training_against_cpu("cpu", steps=2, size=32) == 0.0
+
+
+def test_cpnet_flops_count_every_convolution(smoke):
+    """The phase's FLOP count equals torch's own count of the forward's
+    convolutions."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from saguaro_tpu_torch.models.cellpose import CellposeConfig, CellposeUNet
+
+    cfg = CellposeConfig(tile=32, features=(4, 8, 16, 32), compute_dtype="float32")
+    with FlopCounterMode(display=False) as counter, torch.no_grad():
+        CellposeUNet(cfg).eval()(torch.zeros(1, 32, 32, 2))
+    convs = sum(n for op, n in counter.get_flop_counts()["Global"].items() if "convolution" in str(op))
+    assert smoke.cpnet_conv_flops(cfg, 32) == convs
+
+
+def test_pointer_jumping_splits_a_cone_nucleus_as_the_reference_does(smoke):
+    """The job grid's extra objects (one nucleus split in two by the batched
+    path's pointer-jumping recovery, on the card and on the CPU) are the
+    reference's own: on a 324² crop of grid site 6/7 (``cone_sites`` seed
+    21, site index 6) with ``gradient_cpnet``'s weights, converted for the
+    reference by its ``convert_cellpose_state_dict``, both packages'
+    ``segment_batch`` give equal labels, with the nucleus at (63, 701) in
+    two objects."""
+    import jax
+    from scipy import ndimage
+
+    from saguaro_tpu.models.cellpose import CellposeConfig as RefCellposeConfig
+    from saguaro_tpu.models.cellpose import init_cellpose as ref_init
+    from saguaro_tpu.models.cellpose_weights import convert_cellpose_state_dict
+    from saguaro_tpu.models.effnetv2 import EffNetV2Config as RefEffConfig
+    from saguaro_tpu.models.effnetv2 import StageSpec as RefStage
+    from saguaro_tpu.pipeline.segment_embed import SegmentEmbedConfig as RefEngineConfig
+    from saguaro_tpu.pipeline.segment_embed import SegmentEmbedEngine as RefEngine
+    from saguaro_tpu_torch.models.cellpose import CellposeConfig
+    from saguaro_tpu_torch.models.effnetv2 import EffNetV2Config, StageSpec
+    from saguaro_tpu_torch.pipeline.segment_embed import SegmentEmbedConfig, SegmentEmbedEngine
+
+    images, centres = smoke.cone_sites(16, 1080, seed=21)
+    y0, x0, side = 0, 540, 324
+    crop = images[6, y0:y0 + side, x0:x0 + side]
+    weights = smoke.gradient_cpnet(CellposeConfig())
+    port = SegmentEmbedEngine(
+        SegmentEmbedConfig(channels=list(smoke.CHANNELS), effnet=EffNetV2Config(
+            stem_filters=4, stages=(StageSpec("fused", 1, 3, 1, 4, 1),), head_filters=8)),
+        cellpose_state_dict=weights, device="cpu")
+    _, template = ref_init(RefCellposeConfig(), seed=0)
+    ref = RefEngine(
+        RefEngineConfig(channels=list(smoke.CHANNELS), effnet=RefEffConfig(
+            stem_filters=4, stages=(RefStage("fused", 1, 3, 1, 4, 1),), head_filters=8)),
+        cellpose_variables=convert_cellpose_state_dict(
+            {k: v.numpy() for k, v in weights.items()}, jax.tree.map(np.asarray, template),
+            RefCellposeConfig()))
+    got = port.segment_batch(crop[None])[0].numpy()
+    want = np.asarray(ref.segment_batch(crop[None])[0])
+    np.testing.assert_array_equal(got, want)
+    com = np.array(ndimage.center_of_mass(got > 0, got, np.arange(1, got.max() + 1)))
+    cen = centres[6] - [y0, x0]
+    nearest = np.hypot(*(com[:, None, :] - cen[None]).transpose(2, 0, 1)).argmin(1)
+    ids, counts = np.unique(nearest, return_counts=True)
+    assert [63, 701] in centres[6][ids[counts > 1]].tolist()
+
+
 def test_bound_picks_the_larger_time(smoke):
     t, by = smoke.bound(3.35e9, 0.0)
     assert by == "bytes" and abs(t - 1.0) < 1e-9

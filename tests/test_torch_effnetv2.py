@@ -212,8 +212,10 @@ def test_full_l_keys_and_shapes_are_timm_s():
 
 def test_checkpoint_file_loads(tmp_path):
     """A transformers-style file (``state_dict`` wrapper, ``timm_model.``
-    prefix, a classifier) loads into the port; the JAX package's own
-    checkpoint format is refused, naming where its loader is queued."""
+    prefix, a classifier) loads into the port; a file in the JAX package's
+    own checkpoint format is no torch file, and the torch loader says where
+    such a file is read (``models.checkpoint.load_variables``, held in
+    test_torch_checkpoint)."""
     torch.manual_seed(1)
     mirror = TEffNetV2(TINY).eval()
     blob = {f"timm_model.{k}": v for k, v in mirror.state_dict().items()}
@@ -227,7 +229,7 @@ def test_checkpoint_file_loads(tmp_path):
         torch.testing.assert_close(model(x), mirror(x), rtol=1e-4, atol=1e-5)
     flax_file = tmp_path / "effnet.msgpack"
     flax_file.write_bytes(b"SGTPU1\n" + bytes(16))
-    with pytest.raises(ValueError, match="queue 1 item 4"):
+    with pytest.raises(ValueError, match="not a torch file.*load_variables"):
         load_effnet_checkpoint(str(flax_file))
 
 

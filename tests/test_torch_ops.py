@@ -125,6 +125,35 @@ def test_feature_select_matches_reference(seed, kw):
     pd.testing.assert_frame_equal(got, want)
 
 
+@pytest.mark.parametrize("copy_at", [1, 4, 6])
+@pytest.mark.parametrize("rounding", [-1e-13, 0.0, 1e-13])
+def test_feature_select_keeps_the_first_of_identical_columns(monkeypatch, copy_at, rounding):
+    """Identical columns (a channel's copy of a measurement) have equal
+    correlation sums but for rounding, which the card and the CPU round
+    apart (here: ``rounding`` added to one copy's correlations); the
+    selection ranks them as equal and keeps the earlier one, wherever the
+    copy stands."""
+    rng = np.random.default_rng(7)
+    n = 40
+    base = rng.normal(size=(n, 1))
+    df = pd.DataFrame(base + 0.3 * rng.normal(size=(n, 6)), columns=[f"f{i}" for i in range(6)])
+    df.insert(copy_at, "copy", df["f3"])
+    exact = port_select.nan_aware_correlation
+
+    def rounded_apart(values, device=None):
+        corr = exact(values, device)
+        k = list(df.columns).index("copy")
+        corr[k, :] += rounding
+        corr[:, k] += rounding
+        return corr
+
+    monkeypatch.setattr(port_select, "nan_aware_correlation", rounded_apart)
+    got = port.feature_select(df, device=CPU, corr_threshold=0.99)
+    first, second = sorted(["copy", "f3"], key=list(df.columns).index)
+    assert first in got.columns and second not in got.columns
+    assert [c for c in df.columns if c not in ("copy", "f3")] == [c for c in got.columns if c != first]
+
+
 def test_pairwise_cosine_matches_reference():
     rng = np.random.default_rng(3)
     x = rng.normal(size=(12, 30)).astype(np.float32)

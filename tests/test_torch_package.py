@@ -23,7 +23,7 @@ from .torch_data import share_cpu_threads
 share_cpu_threads()
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "saguaro_tpu", "bench", "__graft_entry__")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "msgpack", "saguaro_tpu", "bench", "__graft_entry__")
 
 
 def _port_sources():
@@ -53,7 +53,10 @@ def test_import_leaves_out_jax_and_reference():
         "import saguaro_tpu_torch.cli.feature_extraction, saguaro_tpu_torch.cli.normalize_cp\n"
         "import saguaro_tpu_torch.cli.pycyto_pertime, saguaro_tpu_torch.cli.concat_cp\n"
         "import saguaro_tpu_torch.cli.feature_select_cosine, saguaro_tpu_torch.cli.induction_hit\n"
-        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'saguaro_tpu', "
+        "import saguaro_tpu_torch.cli.train_segmenter, saguaro_tpu_torch.models.cellpose_train\n"
+        "import saguaro_tpu_torch.models.checkpoint, saguaro_tpu_torch.models.cellpose_weights\n"
+        "import saguaro_tpu_torch.models.effnet_weights\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'msgpack', 'saguaro_tpu', "
         "'matplotlib', 'seaborn')]\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
@@ -208,11 +211,32 @@ def _entry_hits():
     run_induction_hit("x", "features.csv", "out")
 
 
+def _entry_masks_to_flows():
+    from saguaro_tpu_torch.models.cellpose_train import masks_to_flows
+
+    masks_to_flows(np.ones((8, 8), np.int32))
+
+
+def _entry_train_cellpose():
+    from saguaro_tpu_torch.models.cellpose import CellposeConfig
+    from saguaro_tpu_torch.models.cellpose_train import train_cellpose
+
+    train_cellpose(np.zeros((1, 8, 8, 2), np.float32), np.zeros((1, 2, 8, 8), np.float32),
+                   np.zeros((1, 8, 8), np.float32), CellposeConfig(tile=8, features=(2, 2, 2, 2)), n_steps=1)
+
+
+def _entry_train_segmenter():
+    from saguaro_tpu_torch.cli.train_segmenter import main
+
+    main(["--data_dir", "x", "--output", "y.ckpt"])
+
+
 @pytest.mark.parametrize(
     "entry", [_entry_measure, _entry_engine, _entry_masks, _entry_job, _entry_cellpose,
               _entry_max_projection, _entry_rebin, _entry_illumination_qc,
               _entry_estimate_illumination, _entry_effnet, _entry_xgb, _entry_grid,
-              _entry_dispatch, _entry_normalize, _entry_select, _entry_cosine, _entry_hits]
+              _entry_dispatch, _entry_normalize, _entry_select, _entry_cosine, _entry_hits,
+              _entry_masks_to_flows, _entry_train_cellpose, _entry_train_segmenter]
 )
 def test_entry_point_without_device_raises_when_cuda_absent(monkeypatch, entry):
     _no_cuda(monkeypatch)

@@ -659,7 +659,8 @@ def assert_csv_close(got_path: str, want_path: str, rtol: float = 1e-5) -> tuple
     import pandas as pd
 
     got, want = pd.read_csv(got_path), pd.read_csv(want_path)
-    assert list(got.columns) == list(want.columns), got_path
+    assert list(got.columns) == list(want.columns), (
+        got_path, sorted(set(got.columns) - set(want.columns)), sorted(set(want.columns) - set(got.columns)))
     assert got.shape == want.shape, (got_path, got.shape, want.shape)
     shape = got.shape
     for c in got.columns:
