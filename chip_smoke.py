@@ -49,7 +49,21 @@ of 224², bf16) on 32 TIFF pairs of ``synthetic_nuclei``, s/step, images/s,
 the bf16-peak share of its convolutions, peak memory and the flows'
 seconds; its checkpoint, loaded by the full-width engine, segments 4
 held-out tiles and a 1080² field (``segment_batch``), s/site and matched
-IoU; the loss must halve and the IoU exceed 0.5. It
+IoU; the loss must halve and the IoU exceed 0.5. Fine Costes: the main
+path's batch measured again at the default FeatureConfig and with
+``costes_fine_scale=65535`` (s/site of each, peak memory, launches; K3 must
+run at ``costes_fine_refine``, every Costes column finite), the nuclei's
+fine thresholds inside the walk's window below the coarse bracket's top,
+card against CPU on 128² corners (within 2 fine steps; where equal, C1/C2
+within SUM_RTOL), and K3 at the fine shape held and timed into the kernel
+line. Oracles: ``moments_features`` and the three ``multichannel_*``
+functions on the card against the fused measurement's columns. The legacy
+``granularity_spectrum`` of a 1080² site, card against CPU. Mesh: a 2-way
+mesh of the one card (``make_mesh(devices=[cuda:0, cuda:0])``) shards
+``segment_batch`` of 8 and 7 cone sites (labels equal to unsharded), the
+measurement of the 8 sites (against the main path's tables; K1-K6
+launched) and of 7 (unsharded), the pooled embed of 2 sites and 3 f32
+training steps, each against its unsharded run. It
 fails unless each path launched every kernel it runs (K1's and K3's
 launches are logged by call site, with each site's shape), and prints one
 JSON line of per-kernel numbers, the card's name and power limit, and
@@ -109,6 +123,7 @@ PALLAS = "saguaro_tpu/kernels/segment_pallas.py"
 # magnitudes, see segment_cuda._lanes_c). Count lanes are exact. The
 # radial sums (K4 radial) and pass E are held the same way.
 SUM_RTOL = 1e-5
+K3_ORDER_MARGIN = 10.0      # K3's f32 sums of many values: x sqrt(count) * 2**-24 (hold_k3_site)
 BOX = 200                   # the embed stage's crop box (Cellpose_GPU_s3fs.py:30)
 EMBED_SIZE = 480            # its network input
 # the (sites x max_cells x box² x channels) f32 crop pool the embed stage
@@ -381,7 +396,8 @@ def check_lane_adversarial(dev) -> float:
 
 def check_kernels(images, labels, dev):
     """Each kernel against its plain form on the main path's inputs; returns
-    {kernel: entry} with error, times and bound."""
+    ({kernel: entry} with error, times and bound, {kernel: counter}, and
+    the function that adds an entry, for phases after the main path)."""
     import torch
 
     from saguaro_tpu_torch.kernels import segment_cuda as sc
@@ -486,7 +502,7 @@ def check_kernels(images, labels, dev):
     check_family_kernels(img, lab, seg, entry, out)
     del img, lab, seg
     check_resample(dev, entry)
-    return out, counters
+    return out, counters, entry
 
 
 def check_family_kernels(img, lab, seg, entry, entries):
@@ -792,34 +808,45 @@ def check_counts_shapes(rec, dev, entry):
 K3_SITES = {"euler_numbers": "seg_sums[euler]", "radius_features": "seg_sums[radius]"}
 
 
+# the segment_cuda function K3Sites wraps: K3's wrapper on the card (the
+# CPU rehearsals wrap its plain form)
+K3_WRAPPED = "seg_sums"
+
+
 class K3Sites:
-    """Wraps ``seg_sums`` while active: tallies K3's launches by call site
-    (the function that called ``segment_matmul_sums``) and, with ``keep``,
-    keeps each site's first inputs."""
+    """Wraps ``seg_sums`` while active: tallies K3's launches (one a lane
+    chunk of a call) by call site (the function that called
+    ``segment_matmul_sums``) and, with ``keep``, keeps each site's first
+    inputs."""
 
     def __init__(self, keep: bool):
         from saguaro_tpu_torch.kernels import segment_cuda as sc
 
         self.sc, self.keep, self.calls, self.inputs = sc, keep, {}, {}
+        self.name = K3_WRAPPED
 
     def __enter__(self):
-        real = self.real = self.sc.seg_sums
+        real = self.real = getattr(self.sc, self.name)
 
-        def counted(labels, values, max_cells):
+        def counted(labels, values, max_cells, **kw):
             f = sys._getframe(1)
             while f.f_code.co_name != "segment_matmul_sums":
                 f = f.f_back
             site = f.f_back.f_code.co_name
-            self.calls[site] = self.calls.get(site, 0) + 1
             if self.keep and site not in self.inputs:
                 self.inputs[site] = (labels, values, max_cells)
-            return real(labels, values, max_cells)
+            before = self.sc.LAUNCHES["seg_sums"]
+            out = real(labels, values, max_cells, **kw)
+            # a call launches once a lane chunk (the plain form: one call)
+            n = self.sc.LAUNCHES["seg_sums"] - before
+            self.calls[site] = self.calls.get(site, 0) + max(n, 1)
+            return out
 
-        self.sc.seg_sums = counted
+        setattr(self.sc, self.name, counted)
         return self
 
     def __exit__(self, *exc):
-        self.sc.seg_sums = self.real
+        setattr(self.sc, self.name, self.real)
 
 
 def sums_bare(labels, values, max_cells):
@@ -930,41 +957,71 @@ def check_sums_shapes(rec, dev, entry):
     K3Sites): the Euler corner streams (small integers) held exactly, the
     radius sums to SUM_RTOL of each label's sum of |value| (the plain form
     in f64), each timed through the wrapper and bare, beside one
-    ``index_add_``. The bound: 4 B of label and 4 B a value lane a pixel,
-    the table written once, one add a value."""
+    ``index_add_`` (``hold_k3_site``)."""
+    if set(rec.inputs) != set(K3_SITES):
+        raise AssertionError(f"K3's call sites on the main path: {sorted(rec.inputs)}")
+    for site, name in K3_SITES.items():
+        hold_k3_site(rec, site, name, dev, entry, exact=site == "euler_numbers")
+
+
+def hold_k3_site(rec, site, name, dev, entry, exact=False, count_lane=None):
+    """K3 at one call site, with the first inputs ``rec`` (a K3Sites) kept
+    there: held against the plain form in f64 (exactly, or to SUM_RTOL of
+    each label's sum of |value|; with a ``count_lane`` of ones, that lane
+    exactly and the others within the larger of SUM_RTOL and
+    K3_ORDER_MARGIN * sqrt(count) * 2**-24 of it), timed through the wrapper and bare, beside
+    one ``index_add_``, as kernel entry ``name``. The bound: 4 B of label
+    and 4 B a value lane a pixel, the table written once, one add a
+    value."""
     import torch
 
     from saguaro_tpu_torch.kernels import segment_cuda as sc
 
-    if set(rec.inputs) != set(K3_SITES):
-        raise AssertionError(f"K3's call sites on the main path: {sorted(rec.inputs)}")
-    for site, name in K3_SITES.items():
-        lab, val, mc = rec.inputs[site]
-        b, n, k = val.shape
-        got = sc.seg_sums(lab, val, mc)
-        want = sc.sums_plain(lab, val, mc, dtype=torch.float64)
-        torch.cuda.synchronize()
-        if site == "euler_numbers":
-            if not torch.equal(got.double(), want):  # small integers: exact in any order
-                raise AssertionError("K3 Euler sums differ from the plain form")
-            err = 0.0
-        else:
-            err = hold_sums(f"K3 {site}", got, want,
-                            sc.sums_plain(lab, val.abs(), mc, dtype=torch.float64))
-        nz = float((val != 0).any(dim=2).sum())
-        log(f"{name}: {rec.calls[site]} launches a batch, {(b, n, k)}, max_cells {mc}, "
-            f"{nz / (b * n):.4f} of the pixels with a non-zero value")
-        flat_idx = torch.where((lab >= 0) & (lab < mc),
-                               lab.long() + torch.arange(b, device=dev)[:, None] * mc,
-                               b * mc).reshape(-1)
-        flat_val = val.reshape(-1, k)
-        acc = torch.zeros((b * mc + 1, k), device=dev)
-        entry(name, "saguaro_tpu_torch/csrc/sums.cu", f"{PALLAS}:460", err,
-              lambda: sc.seg_sums(lab, val, mc), lambda: sc.sums_plain(lab, val, mc),
-              n_bytes=(4.0 + 4.0 * k) * b * n + 4.0 * b * mc * k, n_ops=float(b * n * k),
-              library=lambda: acc.index_add_(0, flat_idx, flat_val), counter="seg_sums",
-              site=site, bare=sums_bare(lab, val, mc))
-        del got, want, flat_idx, flat_val, acc
+    lab, val, mc = rec.inputs[site]
+    b, n, k = val.shape
+    got = sc.seg_sums(lab, val, mc)
+    want = sc.sums_plain(lab, val, mc, dtype=torch.float64)
+    torch.cuda.synchronize()
+    if exact:
+        if not torch.equal(got.double(), want):  # small integers: exact in any order
+            raise AssertionError(f"K3 {site} sums differ from the plain form")
+        err = 0.0
+    else:
+        scale = sc.sums_plain(lab, val.abs(), mc, dtype=torch.float64)
+        if count_lane is not None:
+            # the count lane is exact (integers below 2**24 in any order);
+            # the others within SUM_RTOL, or, where a bin takes many values,
+            # K3_ORDER_MARGIN * sqrt(count) * 2**-24 of their sum of |value|:
+            # K3 adds a bin's values one at a time into a shared-memory slot
+            # in an order that varies, whose rounding errors add up like a
+            # random walk (about sqrt(count) * 2**-24 / 3 of the sum for
+            # same-signed values), far below the sequential worst case of
+            # (count - 1) * 2**-24
+            counts = want[..., count_lane:count_lane + 1]
+            if not torch.equal(got[..., count_lane].double(), counts[..., 0]):
+                raise AssertionError(f"K3 {site} counts differ from the plain form")
+            walk = torch.sqrt(counts) * 2.0**-24
+            rel = ((got.double() - want).abs() / (walk * scale + 1e-6)).amax()
+            scale = scale * torch.clamp(K3_ORDER_MARGIN * walk / SUM_RTOL, min=1.0)
+            log(f"{name}: bins of up to {int(counts.max())} values; tolerance of the densest "
+                f"{float(torch.clamp(K3_ORDER_MARGIN * walk.max(), min=SUM_RTOL)):.3g} of its sum "
+                f"of |value|; worst error {float(rel):.3g} x (sqrt(count) * 2**-24 of a bin's sum "
+                f"of |value|, + 1e-6) (limit {K3_ORDER_MARGIN} where that exceeds SUM_RTOL)")
+        err = hold_sums(f"K3 {site}", got, want, scale)
+    nz = float((val != 0).any(dim=2).sum())
+    log(f"{name}: {rec.calls[site]} launches a batch, {(b, n, k)}, max_cells {mc}, "
+        f"{nz / (b * n):.4f} of the pixels with a non-zero value")
+    flat_idx = torch.where((lab >= 0) & (lab < mc),
+                           lab.long() + torch.arange(b, device=dev)[:, None] * mc,
+                           b * mc).reshape(-1)
+    flat_val = val.reshape(-1, k)
+    acc = torch.zeros((b * mc + 1, k), device=dev)
+    entry(name, "saguaro_tpu_torch/csrc/sums.cu", f"{PALLAS}:460", err,
+          lambda: sc.seg_sums(lab, val, mc), lambda: sc.sums_plain(lab, val, mc),
+          n_bytes=(4.0 + 4.0 * k) * b * n + 4.0 * b * mc * k, n_ops=float(b * n * k),
+          library=lambda: acc.index_add_(0, flat_idx, flat_val), counter="seg_sums",
+          site=site, bare=sums_bare(lab, val, mc))
+    del got, want, flat_idx, flat_val, acc
 
 
 def hold_resample(name, imgs, out_shape):
@@ -1216,8 +1273,6 @@ def feature_config(**kw):
 def run_main_path(images, gt_labels, device, engine_cfg=None):
     """Segment (engine), recover masks on ground-truth flows, measure.
     Returns (tables per site, recovered labels, seconds per site by stage)."""
-    import torch
-
     from saguaro_tpu_torch.kernels.flow_ode import centroid_flows, compute_masks_batch
     from saguaro_tpu_torch.pipeline.features import measure_site_batch
     from saguaro_tpu_torch.pipeline.segment_embed import SegmentEmbedConfig, SegmentEmbedEngine
@@ -1225,10 +1280,9 @@ def run_main_path(images, gt_labels, device, engine_cfg=None):
     b = len(images)
     cfg = engine_cfg or SegmentEmbedConfig(channels=list(CHANNELS), diameter=100.0)
     engine = SegmentEmbedEngine(cfg, seed=0, device=device)
-    sync = torch.cuda.synchronize if torch.device(device).type == "cuda" else (lambda: None)
     t0 = time.perf_counter()
     seg = engine.segment_batch(images)
-    sync()
+    sync(device)
     t_seg = (time.perf_counter() - t0) / b
     if len(seg) != b or any(tuple(s.shape) != images.shape[1:3] for s in seg):
         raise AssertionError("segment_batch returned the wrong shapes")
@@ -1266,16 +1320,13 @@ def run_single_site(images, gt, dev, crop: int = 360) -> dict:
     corner, against the same call on the CPU (equal labels: the steps sum
     as the reference does, in the same order on both devices). Returns
     seconds: segment a site, Euler recovery of a site."""
-    import torch
-
     from saguaro_tpu_torch.kernels.flow_ode import centroid_flows, compute_masks
     from saguaro_tpu_torch.pipeline.segment_embed import SegmentEmbedConfig, SegmentEmbedEngine
 
     engine = SegmentEmbedEngine(SegmentEmbedConfig(channels=list(CHANNELS), diameter=100.0),
                                 seed=0, device=dev)
-    sync = torch.cuda.synchronize if torch.device(dev).type == "cuda" else (lambda: None)
     engine.segment(images[1])
-    sync()
+    sync(dev)
     t0 = time.perf_counter()
     lab = engine.segment(images[0])
     t_seg = time.perf_counter() - t0
@@ -1349,6 +1400,508 @@ def check_small_against_cpu(dev):
     if worst > 1e-4:
         raise AssertionError(f"card vs CPU measurement differs by {worst:.3g} of column scale")
     log(f"small batch: card vs CPU worst column-relative difference {worst:.3g}")
+
+
+# --------------------------------------------------------------------------
+# The fine Costes descent, the oracles of the fused
+# measurement, the legacy granularity spectrum, the device mesh
+
+FINE_SCALE = 65535          # CP's linear_costes at the uint16 bit depth
+K3_FINE_SITE = "costes_fine_refine"
+# the fused measurement against its oracles: rtol 1e-4 and
+# tests/test_fused_measure.py's atol by family (1e-3 for the intensity and
+# edge families, 1e-4 else); a column whose values are small differences of
+# large sums (odd central moments of round cells, MassDisplacement) may
+# instead meet tests/torch_data.feature_tolerance, the CPU tests' bound
+ORACLE_RTOL = 1e-4
+ORACLE_ATOL = {"moments": 1e-4, "intensity": 1e-3, "edge": 1e-3, "radial": 1e-4, "corr": 1e-4}
+ORACLE_COLUMN = {"moments": "AreaShape_{}", "intensity": "Intensity_{}", "edge": "Intensity_{}",
+                 "radial": "RadialDistribution_{}", "corr": "Correlation_{}"}
+GRAN_RTOL = 1e-5            # legacy granularity, card vs CPU, of the spectrum's scale
+MESH_LOSS_RTOL = 1e-5       # training with and without the mesh, relative loss
+
+
+def sync(dev) -> None:
+    """Wait for ``dev``'s queued work (nothing to wait for on the CPU)."""
+    import torch
+
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def fine_window(prev_k, fine: int, scale: int, fast: bool = True):
+    """The fine grid indices ``costes_fine_refine``'s walk can stop at, from
+    the coarse bracket's top: (lowest, highest)."""
+    from saguaro_tpu_torch.kernels.colocalization import fine_candidates
+
+    r = fine // scale
+    return prev_k * r - (fine_candidates(scale, fine, fast) - 1), prev_k * r
+
+
+def run_fine_costes(images, rec, dev, n_cells):
+    """The second-level Costes descent on the main path's batch: one
+    ``measure_site_batch`` at the default FeatureConfig with
+    ``costes_fine_scale`` = 65535 (its own launch counts, K3 by call site:
+    K3 must run at ``costes_fine_refine``; every table and Costes column
+    finite); s/site beside the default's; each site's and pair's fine walk
+    of the nuclei stopped on CP's rule (a Pearson <= 0 or fewer than 2
+    pixels below), none run off its window's bottom (how many thresholds
+    lie inside the coarse bracket [thr_k, prev_k] is logged). Returns (numbers, the K3Sites record of the fine run, whose
+    first inputs at ``costes_fine_refine`` main holds and times K3 on)."""
+    import torch
+
+    from saguaro_tpu_torch.kernels import segment_cuda as sc
+    from saguaro_tpu_torch.kernels.colocalization import costes_fine_refine, costes_thresholds
+    from saguaro_tpu_torch.kernels.segment_cuda import _pairs
+    from saguaro_tpu_torch.pipeline.features import measure_site_batch
+
+    labels = np.stack(rec)
+    b = len(images)
+    times = {}
+    for name, cfg in (("default", feature_config()),
+                      ("fine", feature_config(costes_fine_scale=FINE_SCALE))):
+        sync(dev)
+        if torch.device(dev).type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        sc.reset_launch_counts()
+        t0 = time.perf_counter()
+        with K3Sites(keep=name == "fine") as k3:
+            tables = measure_site_batch(images, labels, cfg, device=dev)
+            sync(dev)
+        times[name] = (time.perf_counter() - t0) / b
+        peak = torch.cuda.max_memory_allocated(dev) if torch.device(dev).type == "cuda" else 0
+        launches = dict(sc.LAUNCHES)
+        log(f"measure with {name} Costes: {times[name]:.4f} s/site, peak {peak / 1e9:.3f} GB, "
+            f"launches {launches}, K3 by call site {k3.calls}")
+    if K3_FINE_SITE not in k3.calls:
+        raise AssertionError(f"the fine Costes measurement did not launch K3 at {K3_FINE_SITE}: "
+                             f"{k3.calls}")
+    check_tables(tables, n_cells)
+    n_costes = 0
+    for t in tables:
+        for name in ("Nuclei", "Cells", "Cytoplasm"):
+            cols = [c for c in t[name].columns if c.startswith("Correlation_Costes_")]
+            n_costes += len(cols)
+            if not cols or not np.isfinite(t[name][cols].to_numpy(np.float64)).all():
+                raise AssertionError(f"{name}: Costes columns missing or not finite")
+
+    # the nuclei's thresholds against the coarse bracket, every site and pair
+    pairs = tuple(_pairs(len(CHANNELS)))
+    vn = torch.as_tensor(images.reshape(b, -1, len(CHANNELS)).astype(np.float32),
+                         device=dev) / 65535.0
+    inside = torch.as_tensor(labels.reshape(b, -1) > 0, device=dev)
+    _, _, (regs, thr_k, prev_k) = costes_thresholds(vn, inside, pairs, return_bracket=True)
+    fine_f, _, truncated = costes_fine_refine(vn, inside, pairs, regs, prev_k, fine=FINE_SCALE,
+                                              return_truncated=True)
+    kf = np.round(fine_f.cpu().numpy().astype(np.float64) * FINE_SCALE)
+    tk = thr_k.cpu().numpy().astype(np.float64)
+    pk = prev_k.cpu().numpy().astype(np.float64)
+    lo, _ = fine_window(pk, FINE_SCALE, 255)
+    r = FINE_SCALE // 255
+    if truncated.any():
+        at = [tuple(int(i) for i in x) for x in np.argwhere(truncated)]
+        raise AssertionError(f"{len(at)} fine Costes walks (site, pair) {at} ran off the window's "
+                             f"bottom with the Pearson still positive: thresholds {kf[truncated]}, "
+                             f"window bottoms {lo[truncated]}")
+    in_bracket = int(((kf >= tk * r) & (kf <= pk * r)).sum())
+    log(f"fine Costes (nuclei, {b} sites x {len(pairs)} pairs): every walk stopped on CP's rule "
+        f"(0 ran off the window); {in_bracket} of {kf.size} thresholds inside the coarse bracket "
+        f"[thr_k, prev_k]; fine minus coarse stop {np.unique(kf - tk * r).astype(int).tolist()} "
+        f"fine steps; lowest stop {float((kf - lo).min()):.0f} fine steps above its window's bottom")
+    del vn, inside
+
+    _, val, mc = k3.inputs[K3_FINE_SITE]
+    return {"measure_default_s_per_site": times["default"],
+            "measure_fine_s_per_site": times["fine"], "costes_columns": n_costes,
+            "in_bracket": in_bracket, "thresholds": int(kf.size), "truncated": 0,
+            "k3_shape": [*val.shape, mc], "k3_launches": k3.calls[K3_FINE_SITE]}, k3
+
+
+def check_fine_costes_against_cpu(images, rec, dev, size: int = CPU_CHECK_SIZE) -> dict:
+    """The fine descent on a ``size``² corner of every site, card against
+    CPU (K3 against its plain form, the f32 sums in another order): every
+    threshold within 2 fine steps; where the two are equal, C1 and C2
+    within SUM_RTOL (and 1e-6)."""
+    import torch
+
+    from saguaro_tpu_torch.kernels.colocalization import colocalization_features
+
+    img = images[:, :size, :size].astype(np.float32)
+    lab = np.ascontiguousarray(np.stack(rec)[:, :size, :size])
+    vmax = np.zeros((len(img), MAX_CELLS, len(CHANNELS)), np.float32)
+    out = {}
+    for d in (dev, "cpu"):
+        out[str(d)] = colocalization_features(
+            torch.as_tensor(img, device=d), torch.as_tensor(lab, device=d),
+            torch.as_tensor(vmax, device=d), MAX_CELLS, costes_fine_scale=FINE_SCALE)
+    card, cpu = out[str(dev)], out["cpu"]
+    tf_card = card["costes_thr"][0].cpu().numpy().astype(np.float64)
+    tf_cpu = cpu["costes_thr"][0].numpy().astype(np.float64)
+    steps = np.abs(tf_card - tf_cpu) * FINE_SCALE
+    if steps.max() > 2.0 + 1e-3:
+        raise AssertionError(f"fine Costes thresholds card vs CPU differ by {steps.max():.1f} steps")
+    worst, n_equal = 0.0, 0
+    for i, key in enumerate(k for k in cpu if k != "costes_thr"):
+        for s in range(len(img)):
+            if tf_card[s, i] != tf_cpu[s, i]:
+                continue
+            n_equal += 1
+            for stat in ("C1", "C2"):
+                g = card[key][stat][s].cpu().double()
+                c = cpu[key][stat][s].double()
+                ratio = float(((g - c).abs() / (SUM_RTOL * c.abs() + 1e-6)).max())
+                worst = max(worst, ratio)
+    if worst > 1.0:
+        raise AssertionError(f"fine Costes C1/C2 card vs CPU beyond SUM_RTOL ({worst:.3g} of it)")
+    log(f"fine Costes {size}² corners, card vs CPU: thresholds within {steps.max():.0f} fine steps "
+        f"({int((steps == 0).sum())} of {steps.size} equal); C1/C2 where equal within "
+        f"{worst:.3g} of SUM_RTOL")
+    return {"max_steps": float(steps.max()), "equal": int(n_equal), "c_worst_of_tol": worst}
+
+
+def ring_tie_allowance(images, labels, n_rings: int, max_cells: int, tie: float = 1e-4):
+    """How far centroid ring binning (``dist / dmax * n_rings``, floored)
+    may move between two f32 computations of the centroids: a pixel whose
+    ring coordinate lies within ``tie`` of a ring boundary (the exact disks
+    of ``synthetic_sites`` put whole circles of pixels there) can fall on
+    either side. Computed in f64 on the host; returns the allowances
+    (B, max_cells, n_rings, C) of FracAtD (those pixels' share of the
+    object's channel sum, for each ring they border) and of MeanFrac (the
+    same over the ring's pixel share, plus the ring's count moving by those
+    pixels)."""
+    b, h, w, n_ch = images.shape
+    frac = np.zeros((b, max_cells, n_rings, n_ch))
+    mean = np.zeros_like(frac)
+    yy, xx = np.mgrid[:h, :w]
+    for s in range(b):
+        lab = labels[s].reshape(-1)
+        on = (lab > 0) & (lab < max_cells)
+        ids, y, x = lab[on], yy.reshape(-1)[on].astype(np.float64), xx.reshape(-1)[on].astype(np.float64)
+        v = images[s].reshape(-1, n_ch)[on].astype(np.float64)
+        cnt = np.bincount(ids, minlength=max_cells).astype(np.float64)
+        den = np.maximum(cnt, 1.0)
+        cy = np.bincount(ids, y, max_cells) / den
+        cx = np.bincount(ids, x, max_cells) / den
+        d = np.hypot(y - cy[ids], x - cx[ids])
+        dmax = np.zeros(max_cells)
+        np.maximum.at(dmax, ids, d)
+        pos = d / np.maximum(dmax[ids], 1e-6) * n_rings
+        k = np.round(pos)
+        near = (np.abs(pos - k) < tie) & (k >= 1) & (k <= n_rings - 1)
+        ring = np.clip(pos.astype(np.int64), 0, n_rings - 1)
+        ring_cnt = np.zeros((max_cells, n_rings))
+        np.add.at(ring_cnt, (ids, ring), 1.0)
+        total = np.zeros((max_cells, n_ch))
+        np.add.at(total, ids, v)
+        moved_v = np.zeros((max_cells, n_rings, n_ch))
+        moved_n = np.zeros((max_cells, n_rings))
+        for side in (0, 1):  # the rings on either side of the boundary k
+            r = (k[near] - side).astype(np.int64)
+            np.add.at(moved_v, (ids[near], r), v[near])
+            np.add.at(moved_n, (ids[near], r), 1.0)
+        tot = np.maximum(total, 1e-12)[:, None, :]
+        frac[s] = moved_v / tot
+        # MeanFrac = F / p with F the ring's intensity share and p its pixel
+        # share; moving pixels of share q and intensity share f changes it
+        # by at most (f + MeanFrac q) / (p - q)
+        pix = np.maximum(ring_cnt / den[:, None], 1e-12)[..., None]
+        pix_lo = (np.maximum(ring_cnt - moved_n, 1.0) / den[:, None])[..., None]
+        ring_frac = np.zeros((max_cells, n_rings, n_ch))
+        np.add.at(ring_frac, (ids, ring), v)
+        mf = ring_frac / tot / pix
+        mean[s] = (frac[s] + mf * (moved_n / den[:, None])[..., None]) / pix_lo
+    return frac, mean
+
+
+def check_oracles(images, labels, dev) -> dict:
+    """``moments_features`` and the three ``multichannel_*`` functions on
+    the card (sums on K3, at four call sites) against the fused
+    measurement's columns on the 8 sites: ORACLE_RTOL and ORACLE_ATOL, or
+    ``feature_tolerance`` where it is larger (1e-5 of area x side^(p+q) for
+    raw, central and normalized moments, 1e-3 for Hu, 1e-6 of the side for
+    MassDisplacement); the radial family also by what its pixels on a ring
+    boundary may move (``ring_tie_allowance``: the two sides' centroids
+    differ in their last bits). Returns the worst ratio to the tolerance by family,
+    to rtol = 1e-4 with the family's atol alone, and K3's launches by
+    site."""
+    import torch
+
+    from saguaro_tpu_torch.kernels import segment_cuda as sc
+    from saguaro_tpu_torch.kernels.fused_measure import fused_object_features
+    from saguaro_tpu_torch.kernels.moments import moments_features
+    from saguaro_tpu_torch.kernels.multichannel import (
+        edge_intensity_multichannel,
+        multichannel_stats,
+        radial_distribution_multichannel,
+    )
+    from tests.torch_data import feature_tolerance
+
+    img = torch.as_tensor(images.astype(np.float32), device=dev)
+    lab = torch.as_tensor(np.ascontiguousarray(labels), device=dev)
+    sync(dev)
+    sc.reset_launch_counts()
+    t0 = time.perf_counter()
+    with K3Sites(keep=False) as k3:
+        oracle = {"moments": moments_features(lab, MAX_CELLS)}
+        oracle["intensity"], corr = multichannel_stats(img, lab, MAX_CELLS)
+        oracle["edge"] = edge_intensity_multichannel(img, lab, MAX_CELLS)
+        oracle["radial"] = radial_distribution_multichannel(img, lab, MAX_CELLS, 4)
+        sync(dev)
+    secs = time.perf_counter() - t0
+    launches = dict(sc.LAUNCHES)
+    want_sites = {"moments_features", "multichannel_stats", "edge_intensity_multichannel",
+                  "radial_distribution_multichannel"}
+    if not want_sites <= set(k3.calls):
+        raise AssertionError(f"the oracles launched K3 at {k3.calls}")
+    fused = fused_object_features(img, lab, MAX_CELLS, n_rings=4)
+    area = fused["shape"]["Area"].cpu().numpy().astype(np.float64)
+    side = np.maximum(
+        (fused["shape"]["BoundingBoxMaximum_Y"] - fused["shape"]["BoundingBoxMinimum_Y"]).cpu().numpy(),
+        (fused["shape"]["BoundingBoxMaximum_X"] - fused["shape"]["BoundingBoxMinimum_X"]).cpu().numpy(),
+    ).astype(np.float64)
+    worst: dict[str, float] = {}
+    failures = []
+    ties = dict(zip(("FracAtD", "MeanFrac"), ring_tie_allowance(images, labels, 4, MAX_CELLS)))
+    log(f"oracles: pixels on a ring boundary move FracAtD by up to {ties['FracAtD'].max():.3g} "
+        f"and MeanFrac by up to {ties['MeanFrac'].max():.3g}")
+
+    def hold(family, key, got, want):
+        import pandas as pd
+
+        g = got.double().cpu().numpy()
+        w = want.double().cpu().numpy()
+        tol = ORACLE_ATOL[family] + ORACLE_RTOL * np.abs(w)
+        strict = float((np.abs(g - w) / tol).max())
+        col = ORACLE_COLUMN[family].format(key)
+        for s in range(len(w)):
+            # feature_tolerance reads areas and box sides from a table
+            table = pd.DataFrame({"AreaShape_Area": area[s],
+                                  "AreaShape_BoundingBoxMaximum_Y": side[s],
+                                  "AreaShape_BoundingBoxMinimum_Y": 0.0,
+                                  "AreaShape_BoundingBoxMaximum_X": 0.0,
+                                  "AreaShape_BoundingBoxMinimum_X": 0.0})
+            ws = w[s].reshape(len(area[s]), -1)
+            for j in range(ws.shape[1]):
+                scaled = feature_tolerance(col, ws[:, j], table, *images.shape[1:3])
+                t = tol[s].reshape(ws.shape)
+                t[:, j] = np.maximum(t[:, j], scaled)
+                tol[s] = t.reshape(tol[s].shape)
+        if family == "radial":
+            tol = tol + ties[key]
+        ratio = float((np.abs(g - w) / tol).max())
+        worst[family] = max(worst.get(family, 0.0), ratio)
+        if ratio > 1.0:
+            failures.append(f"{family} {key}: {ratio:.3g} of the tolerance (strict {strict:.3g})")
+        return strict
+
+    strict_worst: dict[str, float] = {}
+    for family in ("moments", "intensity", "edge", "radial"):
+        for key, want in oracle[family].items():
+            st = hold(family, key, fused[family][key], want)
+            strict_worst[family] = max(strict_worst.get(family, 0.0), st)
+    for pair, (c, sl) in corr.items():
+        fc, fs = fused["corr"][pair]
+        strict_worst["corr"] = max(strict_worst.get("corr", 0.0), hold("corr", "Correlation", fc, c),
+                                   hold("corr", "Slope", fs, sl))
+    if failures:
+        raise AssertionError("the fused measurement differs from its oracles: " + "; ".join(failures))
+    log(f"oracles on the card ({secs:.3f} s; launches {launches}, K3 by call site {k3.calls}): worst "
+        f"ratio to the tolerance by family {worst}; to rtol = atol = 1e-4 alone {strict_worst}")
+    return {"seconds": secs, "k3_calls": dict(k3.calls), "worst_of_tol": worst,
+            "strict_worst": strict_worst}
+
+
+def check_granularity(images, dev) -> dict:
+    """The legacy ``granularity_spectrum`` (16 radii) of one 1080² site's
+    five channels on the card against the CPU: within GRAN_RTOL of the
+    spectrum's scale; seconds of the card's call."""
+    import torch
+
+    from saguaro_tpu_torch.kernels.morphology import granularity_spectrum
+
+    planes = np.ascontiguousarray(np.moveaxis(images[0], -1, 0).astype(np.float32))
+    x = torch.as_tensor(planes, device=dev)
+    granularity_spectrum(x[:1], 2)
+    sync(dev)
+    t0 = time.perf_counter()
+    card = granularity_spectrum(x, 16)
+    sync(dev)
+    secs = time.perf_counter() - t0
+    cpu = granularity_spectrum(torch.as_tensor(planes), 16).double()
+    card = card.cpu().double()
+    err = float((card - cpu).abs().max())
+    scale = float(cpu.abs().max())
+    if not torch.isfinite(card).all() or err > GRAN_RTOL * scale:
+        raise AssertionError(f"legacy granularity card vs CPU differs by {err:.3g} (scale {scale:.3g})")
+    log(f"legacy granularity spectrum, 5 planes of {planes.shape[1]}², 16 radii: card {secs:.3f} s, "
+        f"card vs CPU {err:.3g} (scale {scale:.3g})")
+    return {"seconds": secs, "max_abs_err": err, "scale": scale}
+
+
+def compare_tables(got, want, what: str) -> float:
+    """Same tables, columns and rows; every well-conditioned numeric column
+    within 1e-4 of its scale (``check_small_against_cpu``'s criterion).
+    Returns the worst column-relative difference."""
+    worst = 0.0
+    for a, c in zip(got, want, strict=True):
+        for name in c:
+            if list(a[name].columns) != list(c[name].columns) or len(a[name]) != len(c[name]):
+                raise AssertionError(f"{what}: {name} tables differ in shape")
+            cols = [k for k in c[name].select_dtypes("number").columns
+                    if not any(t in k for t in ILL_CONDITIONED)]
+            x = a[name][cols].to_numpy(np.float64)
+            y = c[name][cols].to_numpy(np.float64)
+            scale = np.abs(y).max(axis=0, keepdims=True) + 1e-12
+            worst = max(worst, float((np.abs(x - y) / scale).max(initial=0.0)))
+    if worst > 1e-4:
+        raise AssertionError(f"{what}: tables differ by {worst:.3g} of a column's scale")
+    return worst
+
+
+class ShardLaunches:
+    """Wraps the measurement's per-device dispatch (``features._dispatch_on``,
+    once a shard of a sharded batch, once for an unsharded one) while
+    active: each call's own launch counts, from ``LAUNCHES`` before and
+    after it (the dispatch waits on the device where a fixpoint loop tests
+    convergence, and every wrapper counts when it launches)."""
+
+    def __enter__(self):
+        from saguaro_tpu_torch.kernels import segment_cuda as sc
+        from saguaro_tpu_torch.pipeline import features
+
+        self.features, self.launches = features, []
+        real = self.real = features._dispatch_on
+
+        def counted(*args, **kw):
+            before = dict(sc.LAUNCHES)
+            out = real(*args, **kw)
+            self.launches.append({k: v - before[k] for k, v in sc.LAUNCHES.items()})
+            return out
+
+        features._dispatch_on = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.features._dispatch_on = self.real
+
+
+def check_shard_launches(shards: list, total: dict, n_data: int, kernels) -> None:
+    """A sharded measurement's launches: one dispatch a data device, each
+    launching every kernel of ``kernels`` at least once, and the shards'
+    counts adding up to ``total``, read just after the run."""
+    if len(shards) != n_data:
+        raise AssertionError(f"the sharded measurement dispatched {len(shards)} shards, not {n_data}")
+    for i, got in enumerate(shards):
+        missing = [k for k in kernels if got[k] < 1]
+        if missing:
+            raise AssertionError(f"shard {i} of the sharded measurement did not launch {missing}: "
+                                 f"{got}")
+    summed = {k: sum(g[k] for g in shards) for k in total}
+    if summed != total:
+        raise AssertionError(f"the shards' launches {shards} do not add up to the run's {total}")
+    log(f"sharded measurement launches by shard: {shards}")
+
+
+def run_mesh_phase(images, gt, rec, tables, dev, measure_kernels, cfg=None) -> dict:
+    """Site-batch sharding on a 2-way mesh of the one card
+    (``make_mesh(devices=[cuda:0, cuda:0])``: every sharded code path, the
+    shards one after another), engines at ``cfg`` (default: the full-width
+    engine) with ``gradient_cpnet``'s CPnet: ``segment_batch`` of as many
+    cone sites (``cone_sites``, whose nuclei that CPnet finds) as the main
+    path has sites and of one fewer (padded), labels equal to the
+    unsharded engine's; the measurement of the main path's sites sharded
+    (4 a shard) and of one fewer (unsharded: 2 does not divide 7) against
+    the main path's tables, K1-K6 launched by every shard of the sharded
+    run (``check_shard_launches``); the pooled embed of 2 sites
+    sharded against unsharded (the same chunks of crops: max |difference|
+    within 1e-3 of the features' scale); 3 f32 steps of a small CPnet
+    (TF32 off) with and without the mesh within MESH_LOSS_RTOL; and
+    ``default_mesh()`` None on one card."""
+    import torch
+
+    from saguaro_tpu_torch.device import full_f32
+    from saguaro_tpu_torch.kernels import segment_cuda as sc
+    from saguaro_tpu_torch.models.cellpose import CellposeConfig
+    from saguaro_tpu_torch.models.cellpose_train import masks_to_flows, synthetic_nuclei, train_cellpose
+    from saguaro_tpu_torch.parallel.mesh import default_mesh, make_mesh
+    from saguaro_tpu_torch.pipeline.features import measure_site_batch
+    from saguaro_tpu_torch.pipeline.segment_embed import SegmentEmbedConfig, SegmentEmbedEngine
+
+    if default_mesh() is not None:
+        raise AssertionError("default_mesh() on one card must be None")
+    mesh = make_mesh(devices=[dev, dev])
+    cfg = cfg or SegmentEmbedConfig(channels=list(CHANNELS), diameter=100.0)
+    cpnet = gradient_cpnet(cfg.cellpose)
+    single = SegmentEmbedEngine(cfg, cellpose_state_dict=cpnet, seed=0, device=dev)
+    sharded = SegmentEmbedEngine(cfg, cellpose_state_dict=cpnet, seed=0, mesh=mesh)
+    cones, _ = cone_sites(len(images), images.shape[1], seed=23)
+    out: dict = {}
+    for n in (len(images), len(images) - 1):
+        want = [x.cpu().numpy() for x in single.segment_batch(cones[:n])]
+        sync(dev)
+        t0 = time.perf_counter()
+        got = [x.cpu().numpy() for x in sharded.segment_batch(cones[:n])]
+        out[f"segment_{n}_s_per_site"] = (time.perf_counter() - t0) / n
+        out[f"segment_{n}_objects"] = [int(w.max()) for w in want]
+        if len(got) != n or any(not np.array_equal(a, w) for a, w in zip(got, want)):
+            diff = [int((a != w).sum()) for a, w in zip(got, want)]
+            raise AssertionError(f"sharded segment_batch of {n} sites differs from unsharded at "
+                                 f"{diff} pixels")
+        if min(out[f"segment_{n}_objects"]) < 1:
+            raise AssertionError(f"segment_batch found no nuclei: {out[f'segment_{n}_objects']}")
+    labels = np.stack(rec)
+    for n in (len(images), len(images) - 1):
+        sharded_run = n % mesh.shape["data"] == 0
+        sync(dev)
+        sc.reset_launch_counts()
+        t0 = time.perf_counter()
+        with ShardLaunches() as shards:
+            got = measure_site_batch(images[:n], labels[:n], feature_config(), device=dev,
+                                     mesh=mesh)
+            sync(dev)
+        out[f"measure_{n}_s_per_site"] = (time.perf_counter() - t0) / n
+        launches = dict(sc.LAUNCHES)
+        if sharded_run:
+            check_shard_launches(shards.launches, launches, mesh.shape["data"], measure_kernels)
+            out["launches"], out["shard_launches"] = launches, shards.launches
+        out[f"measure_{n}_worst"] = compare_tables(got, tables[:n], f"sharded measurement of {n}")
+
+    want = single.embed_sites_pooled(images[:2], list(gt[:2]))
+    t0 = time.perf_counter()
+    got = sharded.embed_sites_pooled(images[:2], list(gt[:2]))
+    out["embed_2_s"] = time.perf_counter() - t0
+    emb_err = emb_scale = 0.0
+    for (wf, wc), (gf, gc) in zip(want, got, strict=True):
+        if not np.array_equal(wc, gc) or wf.shape != gf.shape or len(wf) == 0:
+            raise AssertionError("sharded pooled embed: other (or no) cells than unsharded")
+        emb_err = max(emb_err, float(np.abs(gf - wf).max()))
+        emb_scale = max(emb_scale, float(np.abs(wf).max()))
+    out["embed_max_abs_diff"], out["embed_scale"] = emb_err, emb_scale
+    if emb_err > 1e-3 * emb_scale:
+        raise AssertionError(f"sharded pooled embed differs from unsharded by {emb_err:.3g} "
+                             f"(scale {emb_scale:.3g})")
+    del single, sharded
+
+    rng = np.random.default_rng(53)
+    data = [[], [], []]
+    for _ in range(8):
+        img, lab = synthetic_nuclei(rng, size=64, n_cells=4)
+        data[0].append(img)
+        data[1].append(masks_to_flows(lab, device=dev))
+        data[2].append((lab > 0).astype(np.float32))
+    data = [np.stack(d) for d in data]
+    ccfg = CellposeConfig(tile=64, features=(8, 16, 32, 64), compute_dtype="float32")
+    kw = dict(n_steps=3, batch_size=4, learning_rate=1e-3, seed=0)
+    with full_f32():
+        one = train_cellpose(*data, ccfg, device=dev, **kw)
+        two = train_cellpose(*data, ccfg, mesh=mesh, **kw)
+    loss_rel = float(np.max(np.abs(np.subtract(two.losses, one.losses)) / np.abs(one.losses)))
+    if loss_rel > MESH_LOSS_RTOL:
+        raise AssertionError(f"training with the mesh differs by {loss_rel:.3g} relative loss")
+    out["train_loss_rel"] = loss_rel
+    log(f"mesh (2 entries of one card): {json.dumps(out)}; segment labels equal, pooled embed "
+        f"equal, losses {one.losses} vs {two.losses}")
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -2441,7 +2994,7 @@ def main() -> int:
     n_cells = int(gt[0].max())
     log(f"{N_SITES} sites {SIZE}x{SIZE}x{len(CHANNELS)}, {n_cells} cells/site")
     check_lane_adversarial(dev)
-    kernels, counters = check_kernels(images, gt, dev)
+    kernels, counters, add_entry = check_kernels(images, gt, dev)
     # K1-K6 run on the feature-extraction path, K7 on the pixel path; a K1
     # row's counter is ("seg_counts", its call site)
     measure_kernels = sorted({c if isinstance(c, str) else c[0] for c in counters.values()}
@@ -2476,6 +3029,24 @@ def main() -> int:
         entry["launches"] = launches[c] if isinstance(c, str) else sites[c[0]].calls[c[1]]
 
     log("stage seconds per site " + json.dumps(secs))
+
+    # the later phases, each its own path with the counts set to 0 before it
+    t0 = time.perf_counter()
+    fine, k3_fine = run_fine_costes(images, rec, dev, n_cells)
+    hold_k3_site(k3_fine, K3_FINE_SITE, "seg_sums[costes_fine]", dev, add_entry, count_lane=0)
+    kernels["seg_sums[costes_fine]"]["launches"] = fine["k3_launches"]
+    del k3_fine
+    fine.update(check_fine_costes_against_cpu(images, rec, dev))
+    log(f"fine Costes phase {time.perf_counter() - t0:.1f} s: " + json.dumps(fine))
+    t0 = time.perf_counter()
+    oracles = check_oracles(images, gt, dev)
+    log(f"oracles phase {time.perf_counter() - t0:.1f} s: " + json.dumps(oracles))
+    t0 = time.perf_counter()
+    gran = check_granularity(images, dev)
+    log(f"granularity phase {time.perf_counter() - t0:.1f} s: " + json.dumps(gran))
+    t0 = time.perf_counter()
+    mesh = run_mesh_phase(images, gt, rec, tables, dev, measure_kernels)
+    log(f"mesh phase {time.perf_counter() - t0:.1f} s: " + json.dumps(mesh))
 
     sc.reset_launch_counts()
     single = run_single_site(images, gt, dev)

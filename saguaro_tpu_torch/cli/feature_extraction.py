@@ -3,8 +3,8 @@
 ``--device``).
 
 Each job segments its sites with the CPnet engine and measures the
-CP-equivalent tables on one device, writing Image/Nuclei/Cells/Cytoplasm.csv
-under ``<output>/<plate>/<time>/``.
+CP-equivalent tables on one device, or sharded over ``--devices`` GPUs,
+writing Image/Nuclei/Cells/Cytoplasm.csv under ``<output>/<plate>/<time>/``.
 """
 
 import argparse
@@ -30,20 +30,24 @@ def main(argv=None):
     parser.add_argument("--diameter", type=float, default=100.0)
     parser.add_argument("--max_cells", type=int, default=512)
     parser.add_argument("--devices", type=int, default=None,
-                        help="Number of devices; only one (or unset) is ported.")
+                        help="Mesh size: shard segmentation + measurement batches "
+                        "over this many GPUs (default, and 1: one device; sharding "
+                        "has not yet been measured faster).")
     parser.add_argument("--device", type=str, default=None,
                         help="Torch device (default: CUDA; 'cpu' runs the plain forms).")
     args = parser.parse_args(argv)
 
     logging.basicConfig(level=logging.INFO)
+    from saguaro_tpu_torch.parallel.mesh import default_mesh_for
     from saguaro_tpu_torch.pipeline.feature_extraction import run_batch_processing
     from saguaro_tpu_torch.pipeline.features import FeatureConfig
     from saguaro_tpu_torch.pipeline.segment_embed import SegmentEmbedConfig, SegmentEmbedEngine
 
+    mesh = default_mesh_for(args.device, args.devices) if args.devices else None
     engine = SegmentEmbedEngine(
         SegmentEmbedConfig(channels=list(args.channels), diameter=args.diameter,
-                           max_cells=args.max_cells, devices=args.devices),
-        device=args.device,
+                           max_cells=args.max_cells),
+        device=args.device, mesh=mesh,
     )
     return run_batch_processing(
         bucket_name=args.bucket_name,
@@ -55,8 +59,8 @@ def main(argv=None):
         load_data_key_for_job=lambda p, t: args.load_data_template.format(plate=p, time=t),
         segmenter=engine,  # exposes segment_batch: a chunk segments at once
         feature_cfg=FeatureConfig(channels=tuple(args.channels), max_cells=args.max_cells),
-        devices=args.devices,
         device=args.device,
+        mesh=mesh,
     )
 
 

@@ -47,7 +47,9 @@ def main(argv=None):
     parser.add_argument("--spill_dir", type=str, default=None,
                         help="Per-site npz spill + manifest for resumable runs.")
     parser.add_argument("--devices", type=int, default=None,
-                        help="Number of devices; only one (or unset) is ported.")
+                        help="Mesh size: shard site batches over this many GPUs "
+                        "(default: every visible device; 1 = single-device; "
+                        "a --device naming the CPU or one card takes none).")
     parser.add_argument("--device", type=str, default=None,
                         help="Torch device (default: CUDA; 'cpu' runs the plain forms).")
     args = parser.parse_args(argv)

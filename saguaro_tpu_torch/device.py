@@ -6,7 +6,7 @@ import contextlib
 
 import torch
 
-__all__ = ["resolve_device", "full_f32"]
+__all__ = ["resolve_device", "full_f32", "on_device"]
 
 
 def resolve_device(device: str | torch.device | None = None) -> torch.device:
@@ -39,3 +39,12 @@ def full_f32():
     finally:
         torch.set_float32_matmul_precision(matmul)
         torch.backends.cudnn.allow_tf32 = conv
+
+
+def on_device(device: torch.device):
+    """A block in which ``device`` is the current CUDA device (kernels
+    launched through the CUDA runtime, events and the current stream go
+    there); a no-op for any other device."""
+    if device.type == "cuda":
+        return torch.cuda.device(device)
+    return contextlib.nullcontext()

@@ -20,8 +20,11 @@ the Pearson statistic of every grid step is evaluated at once on the device
 and CP's stepping walks that vector on the host. The masked per-object sums
 of all three families are one lane scan per object set (K4 pass E).
 
-The second-level Costes refinement (``costes_fine_scale``) is not ported:
-a config that sets it raises ``NotImplementedError``.
+With ``costes_fine_scale`` the descent runs at two levels, as the
+reference's: the coarse grid brackets the stopping step, and
+``costes_fine_refine`` walks the fine grid (1/65535 for uint16 data) inside
+that bracket from per-candidate moment sums (K3 over each pixel's entry and
+exit candidate).
 
 Every function takes a leading site-batch dimension: image (B, H, W, C),
 labels (B, H, W); per-object outputs (B, max_cells).
@@ -35,11 +38,12 @@ import numpy as np
 import torch
 
 from saguaro_tpu_torch.kernels import segment_cuda as sc
-from saguaro_tpu_torch.kernels.onehot_reduce import onehot_counts
+from saguaro_tpu_torch.kernels.onehot_reduce import onehot_counts, segment_matmul_sums
 from saguaro_tpu_torch.kernels.segment_cuda import _pairs
 
 __all__ = [
     "costes_thresholds",
+    "costes_fine_refine",
     "coloc_threshold_sums",
     "colocalization_features",
     "colocalization_features_multiset",
@@ -122,6 +126,7 @@ def costes_thresholds(
     scale: int = 255,
     fast: bool = True,
     joint: dict | None = None,
+    return_bracket: bool = False,
 ):
     """CP 4.2.8 linear_costes for every channel pair and site.
 
@@ -132,7 +137,13 @@ def costes_thresholds(
     grid, bin floors otherwise). The statistic is evaluated exactly, from
     int64 moments of the grid codes, so its sign, which stops the descent,
     is exact where f32 sums could round a near-zero or constant-input
-    statistic either way."""
+    statistic either way.
+
+    ``return_bracket=True`` also returns ``(regs (B, P, 2), thr_k (B, P),
+    prev_k (B, P))``: the regression line, the stopping grid index and the
+    grid index visited before it (where the statistic was still positive;
+    the pre-skip start when the stop was the first visit), the bracket
+    ``costes_fine_refine`` searches."""
     b = values.shape[0]
     dev = values.device
     s_codes = scale + 1
@@ -202,6 +213,7 @@ def costes_thresholds(
     f32 = np.float32
     step32 = f32(i_step)
     thr_k = np.zeros((b, n_pairs), np.float32)
+    prev_k = np.zeros((b, n_pairs), np.float32)
     for s in range(b):
         for p in range(n_pairs):
             sa, sb = reg_h[s, p]
@@ -210,11 +222,11 @@ def costes_thresholds(
             k = k0
             while k * step32 > fa_max and sa * (k * step32) + sb > fb_max:
                 k = k - f32(1.0)
-            t = k0
+            t = prev = k0
             while k > 1.0:
                 ki = int(k)
                 c, nb = cost_h[s, p, ki], n_h[s, p, ki]
-                t = k
+                prev, t = t, k
                 if not fast or k < 10.0:
                     step = 1.0
                 elif c > 0.45:
@@ -228,9 +240,212 @@ def costes_thresholds(
                 k = k - f32(step)
                 if c <= 0 or nb < 2.0:
                     break
-            thr_k[s, p] = t
+            thr_k[s, p], prev_k[s, p] = t, prev
     thr_f = torch.as_tensor(thr_k, device=dev) * i_step
-    return thr_f, reg[..., 0] * thr_f + reg[..., 1]
+    thr_s = reg[..., 0] * thr_f + reg[..., 1]
+    if return_bracket:
+        return thr_f, thr_s, (reg, torch.as_tensor(thr_k, device=dev),
+                              torch.as_tensor(prev_k, device=dev))
+    return thr_f, thr_s
+
+
+# bytes of f32 moment lanes the fine descent holds at once: the pairs go to
+# K3 in chunks of as many as fit (at 8 sites of 1080² one pair takes 224 MB)
+FINE_LANE_BYTES = 1 << 30
+
+
+def fine_candidates(scale: int, fine: int, fast: bool = True) -> int:
+    """Fine grid steps the fine descent walks from the coarse bracket's top:
+    one coarse step of the fastest stride (10 with ``fast``, else 1) and
+    one more, and two fine steps of margin."""
+    return ((10 if fast else 1) + 1) * (fine // scale) + 2
+
+
+def _skip_start(k0, step, fa_max, fb_max, slope, icept):
+    """CP's skip loop in f32: from grid index ``k0`` step down by one while
+    both thresholds (k * step and the regression line's value there) lie
+    above their channel's maximum; every candidate at once."""
+    ks = k0 - np.arange(int(max(k0, 0.0)) + 2, dtype=np.float32)
+    i = ks * step
+    above = (i > fa_max) & (slope * i + icept > fb_max)
+    stop = np.flatnonzero(~above)
+    return ks[stop[0]] if stop.size else ks[-1]
+
+
+def _fine_walk(pear, n_b, k_hi, fast):
+    """CP's stepping over the fine candidates t = 0, 1, ... (grid index
+    k_hi - t), stopping at the first visited t whose Pearson is <= 0 or
+    whose region holds fewer than 2 pixels; returns (the last visited t,
+    whether the walk ran off the window's bottom instead: it stepped past
+    the last candidate still above the grid's floor without stopping)."""
+    m = len(pear)
+    t, t_thr = 0.0, 0.0
+    while k_hi - t > 1.0:
+        if t >= m:
+            return t_thr, True
+        ti = int(t)
+        cost, nb = pear[ti], n_b[ti]
+        t_thr = t
+        if not fast or k_hi - t < 10.0:
+            step = 1.0
+        elif cost > 0.45:
+            step = 10.0
+        elif cost > 0.35:
+            step = 5.0
+        elif cost > 0.25:
+            step = 2.0
+        else:
+            step = 1.0
+        t += step
+        if cost <= 0 or nb < 2.0:
+            break
+    return t_thr, False
+
+
+def costes_fine_refine(
+    values: torch.Tensor,
+    inside: torch.Tensor,
+    pairs: tuple[tuple[int, int], ...],
+    regs: torch.Tensor,
+    prev_k: torch.Tensor,
+    scale: int = 255,
+    fine: int = 65535,
+    fast: bool = True,
+    return_truncated: bool = False,
+):
+    """Second-level Costes descent at the data's own resolution (CP runs
+    linear_costes at the image's bit depth, 1/65535 for uint16).
+
+    values (B, N, C) normalized to [0, 1], inside (B, N) bool, and the
+    coarse pass's ``regs`` (B, P, 2) and ``prev_k`` (B, P)
+    (``costes_thresholds(..., return_bracket=True)``) -> (thr_f (B, P),
+    thr_s (B, P)) on the 1/fine grid, normalized; with
+    ``return_truncated``, also a (B, P) bool array of the walks that ran
+    off the window's bottom with the Pearson still positive (their
+    threshold is the window's last candidate, not CP's stop; the
+    reference makes the same assumption that one coarse step brackets it).
+
+    The walk starts at the coarse bracket's top (or CP's fine skip start,
+    if lower) and covers one coarse step of the fastest stride and two fine
+    steps more. For descending candidates the above-threshold rectangle
+    only grows (the second threshold moves with the first along the
+    regression line), so each pixel enters it at one candidate and, for a
+    negative slope, leaves it at one. The six moments [1, a, b, a², b², ab]
+    of the pixels below the thresholds at every candidate t are then the
+    sums over the pixels that enter after t (a suffix sum) plus those that
+    left by t (a prefix sum) of per-candidate entry and exit sums: K3
+    (``segment_matmul_sums``) with the pixels' candidate indices as labels,
+    one site-pair a row of K3's batch; inside pixels that never enter sum
+    into the last bin. The values are centred by their inside means first
+    (Pearson is shift-invariant). The prefix and suffix sums, the Pearson
+    vector and CP's stepping run on the host in f64, over the f32 bin sums:
+    the region below is summed directly, where the reference subtracts the
+    rectangle from the inside total in f32 and, where few pixels lie below,
+    keeps mostly rounding."""
+    if fine % scale:
+        raise ValueError(f"costes fine scale {fine} is not a multiple of the coarse scale {scale}")
+    b, n, n_ch = values.shape
+    dev = values.device
+    n_pairs = len(pairs)
+    f32 = np.float32
+    r_ratio = fine // scale
+    m_cand = fine_candidates(scale, fine, fast)
+    i_f = f32(1.0 / fine)
+
+    # fine integer codes: values on the 1/fine grid round back exactly
+    codes_f = torch.clamp(torch.round(values.float() * fine), 0, fine)
+    vals_f = codes_f * float(i_f)
+    vmax = torch.where(inside[..., None], vals_f, torch.full_like(vals_f, -_BIG)).amax(dim=1)
+
+    reg_h = regs.detach().cpu().numpy().astype(f32)
+    prev_h = prev_k.detach().cpu().numpy().astype(f32)
+    vmax_h = vmax.cpu().numpy()
+    k0 = np.zeros((b, n_pairs), f32)
+    k_hi = np.zeros((b, n_pairs), f32)
+    for s in range(b):
+        for p, (a, c) in enumerate(pairs):
+            fa_max, fb_max = vmax_h[s, a], vmax_h[s, c]
+            k0[s, p] = np.floor(f32(max(fa_max, fb_max)) / i_f) + f32(1.0)
+            k_skip = _skip_start(k0[s, p], i_f, fa_max, fb_max, reg_h[s, p, 0], reg_h[s, p, 1])
+            k_hi[s, p] = min(prev_h[s, p] * f32(r_ratio), k_skip)
+
+    # the candidates' second-channel code thresholds (B, P, M)
+    slope = torch.as_tensor(reg_h[..., 0], device=dev)
+    icept = torch.as_tensor(reg_h[..., 1], device=dev)
+    k_hi_d = torch.as_tensor(k_hi, device=dev)
+    kf = k_hi_d[..., None] - torch.arange(m_cand, dtype=torch.float32, device=dev)
+    jb_t = torch.clamp(torch.ceil(slope[..., None] * kf + (icept * fine)[..., None]), 0, fine + 1)
+
+    top = k_hi_d * float(i_f)
+    centre = torch.stack([top, slope * top + icept], dim=-1)       # (B, P, 2)
+    chunk = max(1, FINE_LANE_BYTES // max(b * n * 6 * 4, 1))
+    enter_sums = torch.zeros((b, n_pairs, m_cand + 1, 6), dtype=torch.float32, device=dev)
+    exit_sums = torch.zeros_like(enter_sums)
+    outside = ~inside[:, None, :]
+    for p0 in range(0, n_pairs, chunk):
+        ps = list(range(p0, min(p0 + chunk, n_pairs)))
+        a_idx = [pairs[p][0] for p in ps]
+        c_idx = [pairs[p][1] for p in ps]
+        code_a = codes_f[:, :, a_idx].permute(0, 2, 1)           # (B, Pc, N)
+        code_b = codes_f[:, :, c_idx].permute(0, 2, 1).contiguous()
+        jb = jb_t[:, ps]
+        pos = (slope[:, ps] >= 0)[..., None]
+        # entry: the first-channel condition code_a >= kf(t) holds for t >= ca
+        enter = torch.clamp(k_hi_d[:, ps, None] - code_a, 0.0, float(m_cand))
+        # slope >= 0: jb non-increasing in t, the second holds for t >= cb
+        cb_pos = m_cand - torch.searchsorted(jb.flip(-1).contiguous(), code_b, right=True)
+        # slope < 0: jb non-decreasing, the second holds for t < exit
+        exit_ = torch.searchsorted(jb.contiguous(), code_b, right=True).float()
+        del code_a, code_b
+        enter = torch.where(pos, torch.maximum(enter, cb_pos.float()), enter)
+        exit_ = torch.where(pos, float(m_cand), exit_)
+        del cb_pos
+        never = exit_ <= enter
+        # inside pixels that never enter stay below: the last bin
+        enter = torch.where(never, float(m_cand), enter)
+        enter = torch.where(outside, -1.0, enter).to(torch.int32)
+        exit_ = torch.where(outside | never | (exit_ >= m_cand), -1.0, exit_).to(torch.int32)
+        del never
+        # centred at the window's top (the thresholds of candidate 0)
+        va = vals_f[:, :, a_idx].permute(0, 2, 1) - centre[:, ps, :1]
+        vb = vals_f[:, :, c_idx].permute(0, 2, 1) - centre[:, ps, 1:]
+        bp = b * len(ps)
+        lanes = torch.stack([torch.ones_like(va), va, vb, va * va, vb * vb, va * vb],
+                            dim=-1).reshape(bp, n, 6)
+        del va, vb
+        enter_sums[:, ps] = segment_matmul_sums(enter.reshape(bp, n), lanes, m_cand + 1).reshape(
+            b, len(ps), m_cand + 1, 6)
+        if bool((~pos).any()):
+            exit_sums[:, ps] = segment_matmul_sums(exit_.reshape(bp, n), lanes, m_cand + 1).reshape(
+                b, len(ps), m_cand + 1, 6)
+        del enter, exit_, lanes
+
+    # moments of the pixels below each candidate, their Pearson, and CP's
+    # walk, on the host
+    ent = enter_sums.cpu().numpy().astype(np.float64)
+    ext = exit_sums.cpu().numpy().astype(np.float64)
+    # entered after t: the suffix from t + 1 (the last bin included)
+    later = np.cumsum(ent[:, :, ::-1], axis=2)[:, :, ::-1][:, :, 1:]
+    below = later + np.cumsum(ext[:, :, :m_cand], axis=2)          # (B, P, M, 6)
+    n_b, sf, ss, sff, sss, sfs = np.moveaxis(below, -1, 0)
+    num = n_b * sfs - sf * ss
+    den = np.sqrt(np.maximum(n_b * sff - sf * sf, 0.0) * np.maximum(n_b * sss - ss * ss, 0.0))
+    with np.errstate(divide="ignore", invalid="ignore"):
+        pear = np.where(den > 0, num / den, np.nan)
+    thr_kf = np.zeros((b, n_pairs), f32)
+    truncated = np.zeros((b, n_pairs), bool)
+    for s in range(b):
+        for p in range(n_pairs):
+            if k_hi[s, p] > 1.0:
+                t_thr, truncated[s, p] = _fine_walk(pear[s, p].tolist(), n_b[s, p].tolist(),
+                                                    float(k_hi[s, p]), fast)
+                thr_kf[s, p] = k_hi[s, p] - f32(t_thr)
+            else:  # the walk never ran: CP keeps its pre-skip start
+                thr_kf[s, p] = k0[s, p]
+    thr_f = torch.as_tensor(thr_kf * i_f, device=dev)
+    if return_truncated:
+        return thr_f, slope * thr_f + icept, truncated
+    return thr_f, slope * thr_f + icept
 
 
 def coloc_threshold_sums(labels, vr, ranks, tff, thr_f, thr_s, inv_r, max_cells):
@@ -284,12 +499,8 @@ def colocalization_features_multiset(
 
     Returns {set: {(a, b): {"M1", "M2", "RWC1", "RWC2", "C1", "C2"} each
     (B, max_cells), "costes_thr": (thr_f, thr_s) (B, P) normalized}}.
-    Empty denominators give 0."""
-    if costes_fine_scale is not None:
-        raise NotImplementedError(
-            "costes_fine_scale: the second-level Costes descent (costes_fine_refine) "
-            "is not ported yet"
-        )
+    Empty denominators give 0. With ``costes_fine_scale`` each set's Costes
+    thresholds come from the two-level descent (``costes_fine_refine``)."""
     b, h, w, n_ch = image.shape
     names = list(labels_by_set)
     pairs = _pairs(n_ch)
@@ -343,9 +554,19 @@ def colocalization_features_multiset(
         inv_r = torch.stack(
             [1.0 / torch.clamp(torch.maximum(nd[a], nd[c]), min=1.0) for a, c in pairs], dim=1
         )
-        thr_f_n, thr_s_n = costes_thresholds(
-            vn, insides[nm], pairs, scale=costes_scale, fast=costes_fast, joint=joint_by[nm]
-        )
+        if costes_fine_scale is not None:
+            _, _, (c_regs, _, c_prev) = costes_thresholds(
+                vn, insides[nm], pairs, scale=costes_scale, fast=costes_fast,
+                joint=joint_by[nm], return_bracket=True,
+            )
+            thr_f_n, thr_s_n = costes_fine_refine(
+                vn, insides[nm], pairs, c_regs, c_prev, scale=costes_scale,
+                fine=costes_fine_scale, fast=costes_fast,
+            )
+        else:
+            thr_f_n, thr_s_n = costes_thresholds(
+                vn, insides[nm], pairs, scale=costes_scale, fast=costes_fast, joint=joint_by[nm]
+            )
         vmax = vmax_by_set[nm]
         tff = (thr_pct / 100.0) * torch.where(
             torch.isfinite(vmax) & (vmax.abs() < 3.38e38), vmax, torch.zeros_like(vmax)

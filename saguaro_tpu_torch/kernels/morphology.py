@@ -7,7 +7,10 @@
   dilation growth (the 'distance' flavour).
 * ``tertiary_objects``: IdentifyTertiaryObjects (Cytoplasm = Cells minus
   Nuclei).
-* ``granularity_spectrum_cp``: CP 4.2.8 MeasureGranularity.
+* ``granularity_spectrum_cp``: CP 4.2.8 MeasureGranularity;
+  ``granularity_spectrum``: the reference's legacy fast approximation (3x3
+  square pools, k-fold dilation in place of reconstruction), kept for
+  benchmarks and as a cheap spectral fingerprint.
 
 Every function takes a leading batch dimension: labels and images are
 (B, H, W). The reference's ``lax.while_loop``s are Python loops that check
@@ -26,6 +29,7 @@ __all__ = [
     "expand_labels",
     "propagate_labels",
     "tertiary_objects",
+    "granularity_spectrum",
     "granularity_spectrum_cp",
 ]
 
@@ -144,6 +148,12 @@ def _pool_max(x: torch.Tensor, kh: int, kw: int) -> torch.Tensor:
     return F.max_pool2d(x[:, None], (kh, kw), stride=1, padding=(kh // 2, kw // 2))[:, 0]
 
 
+def _pool_min(x: torch.Tensor, kh: int, kw: int) -> torch.Tensor:
+    """``_pool_max``'s twin: (B, H, W) min over a centred (kh, kw) window,
+    outside pixels ignored (a +inf init)."""
+    return -_pool_max(-x, kh, kw)
+
+
 def _grey_disk(x: torch.Tensor, radius: int, op: str) -> torch.Tensor:
     """Grey erosion ('min') / dilation ('max') with
     skimage.morphology.disk(radius): one horizontal window per distinct row
@@ -259,4 +269,25 @@ def granularity_spectrum_cp(
         # pixelwise), free of the cancellation of two near-equal means
         out.append((prev_rec - rec).mean(dim=(1, 2)) * 100.0 / denom)
         prev_rec = rec
+    return torch.stack(out, dim=1)
+
+
+def granularity_spectrum(image: torch.Tensor, spectrum_length: int = 16) -> torch.Tensor:
+    """The reference's legacy granularity approximation, superseded in the
+    measurement tables by ``granularity_spectrum_cp``: (B, H, W) planes ->
+    (B, spectrum_length). Per radius k = 1..L the image is eroded once more
+    by a 3x3 square, dilated once and then k - 1 times more under the image
+    (an approximate opening of radius k); element k - 1 is the share of the
+    image's mean (x100) the step removed."""
+    img = image.float()
+    start_mean = torch.clamp(img.mean(dim=(1, 2)), min=1e-12)
+    eroded, prev_mean, out = img, start_mean, []
+    for k in range(spectrum_length):
+        eroded = _pool_min(eroded, 3, 3)
+        rec = _pool_max(eroded, 3, 3)
+        for _ in range(k):
+            rec = torch.minimum(_pool_max(rec, 3, 3), img)
+        new_mean = rec.mean(dim=(1, 2))
+        out.append((prev_mean - new_mean) * 100.0 / start_mean)
+        prev_mean = new_mean
     return torch.stack(out, dim=1)

@@ -45,6 +45,7 @@ from pathlib import Path
 
 import torch
 
+from saguaro_tpu_torch.device import on_device
 from saguaro_tpu_torch.kernels.zernike import ZERNIKE_INDEXES
 
 __all__ = [
@@ -234,11 +235,16 @@ def _launch(fn_name: str, counter: str, device: torch.device, *args) -> None:
     its own, ``sag/<counter>``: the profiler links a kernel to the op whose
     correlation id the launch carries, which only an op (a FUNCTION-scope
     record, as PyTorch's own launches and Triton's have) pushes, not a
-    ``record_function`` range. Without a profiler the record is a no-op."""
+    ``record_function`` range. Without a profiler the record is a no-op.
+
+    The C call launches on the thread's current CUDA device, so ``device``
+    is made current around it: a shard on another card than the current
+    one launches there."""
     lib = _lib()
-    stream = torch.cuda.current_stream(device).cuda_stream
-    with torch._C._profiler._RecordFunctionFast(f"sag/{counter}"):
-        rc = getattr(lib, fn_name)(*args, stream)
+    with on_device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        with torch._C._profiler._RecordFunctionFast(f"sag/{counter}"):
+            rc = getattr(lib, fn_name)(*args, stream)
     if rc != 0:
         msg = lib.sag_error_string(rc).decode()
         raise RuntimeError(f"{fn_name} failed: CUDA error {rc} ({msg})")

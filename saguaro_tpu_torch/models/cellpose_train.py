@@ -11,8 +11,9 @@ can train its own:
   pixel as the source; the flows are the normalised gradient of
   log(1 + heat).
 * ``train_cellpose``: Adam on ``CellposeUNet`` over (image, flows,
-  cellprob) batches on one device. The reference's data-parallel mesh is
-  not ported: passing one raises.
+  cellprob) batches, on one device or data-parallel over a mesh
+  (``parallel.mesh``): one replica a data device, gradients summed onto
+  the first.
 
 ``cli/train_segmenter.py`` trains from (image, mask) TIFF pairs and writes
 a checkpoint that both packages' engines load.
@@ -29,7 +30,8 @@ import torch
 from saguaro_tpu_torch.device import resolve_device
 from saguaro_tpu_torch.kernels.crops import label_centroids
 from saguaro_tpu_torch.kernels.flow_ode import _fma
-from saguaro_tpu_torch.models.cellpose import CellposeConfig, init_cellpose, train_step
+from saguaro_tpu_torch.models.cellpose import CellposeConfig, flow_loss, init_cellpose, train_step
+from saguaro_tpu_torch.parallel.mesh import replicate
 
 __all__ = ["masks_to_flows", "train_cellpose", "synthetic_nuclei", "TrainResult"]
 
@@ -231,17 +233,24 @@ def train_cellpose(
     Adam with optax's defaults (b1 0.9, b2 0.999, eps 1e-8) on the
     parameters; the BatchNorm statistics stay fixed, as the reference's. Each
     step draws ``np.random.default_rng(seed).integers(0, N, batch_size)``,
-    as the reference does, so both packages see the same batches. A mesh
-    (data-parallel training) is not ported and raises."""
-    if mesh is not None:
-        raise NotImplementedError("mesh: data-parallel training over several devices is not ported "
-                                  "yet (parallel/mesh.py); train on one device")
-    device = resolve_device(device)
+    as the reference does, so both packages see the same batches.
+
+    With a ``mesh`` (``parallel.mesh``) the step is data-parallel, as the
+    reference's replicated-parameter step over its mesh: the weights live on
+    the first data device (``device`` is then not used) with one replica on
+    each other data device, each step's batch is split into contiguous
+    shards over the data axis, each replica runs forward and backward on
+    its shard with its loss weighted by its share of the batch, the
+    gradients are summed onto the first device (so the loss and its
+    gradient are the whole batch's mean), one Adam step updates the
+    weights, and the replicas copy them back."""
+    device = resolve_device(device) if mesh is None else mesh.data_devices[0]
     model = init_cellpose(config, seed=seed, device=device)
     optimizer = torch.optim.Adam(model.parameters(), lr=learning_rate, betas=(0.9, 0.999), eps=1e-8)
     imgs = torch.as_tensor(np.asarray(images, np.float32), device=device)
     flows = torch.as_tensor(np.moveaxis(np.asarray(flow_targets, np.float32), 1, -1), device=device)
     probs = torch.as_tensor(np.asarray(prob_targets, np.float32), device=device)
+    replicas = replicate(model, mesh) if mesh is not None else None
 
     rng = np.random.default_rng(seed)
     n = imgs.shape[0]
@@ -249,7 +258,46 @@ def train_cellpose(
     for _ in range(n_steps):
         t0 = time.perf_counter()
         idx = torch.as_tensor(rng.integers(0, n, batch_size), device=device)
-        loss = train_step(model, optimizer, (imgs[idx], flows[idx], probs[idx]))
+        batch = (imgs[idx], flows[idx], probs[idx])
+        if replicas is None:
+            loss = train_step(model, optimizer, batch)
+        else:
+            loss = _data_parallel_step(model, replicas, optimizer, batch)
         losses.append(float(loss))
         step_seconds.append(time.perf_counter() - t0)
     return TrainResult(variables=model.state_dict(), losses=losses, step_seconds=step_seconds)
+
+
+def _data_parallel_step(model, replicas, optimizer, batch) -> torch.Tensor:
+    """One optimiser step of ``model`` (``replicas[0]``) over a batch split
+    into one contiguous shard a replica; returns the whole batch's loss."""
+    b = batch[0].shape[0]
+    shards = [torch.tensor_split(t, len(replicas)) for t in batch]
+    optimizer.zero_grad(set_to_none=True)
+    params = list(model.parameters())
+    total = torch.zeros((), device=params[0].device)
+    for r, replica in enumerate(replicas):
+        img, tflow, tprob = (s[r] for s in shards)
+        if img.shape[0] == 0:
+            continue
+        dev = next(replica.parameters()).device
+        if replica is not model:
+            replica.zero_grad(set_to_none=True)
+        loss = flow_loss(replica(img.to(dev)), tflow.to(dev), tprob.to(dev)) * (img.shape[0] / b)
+        loss.backward()
+        total = total + loss.detach().to(total.device)
+    for replica in replicas:
+        if replica is model:
+            continue
+        for p, q in zip(params, replica.parameters()):
+            if q.grad is None:
+                continue
+            g = q.grad.to(p.device)
+            p.grad = g if p.grad is None else p.grad + g
+    optimizer.step()
+    with torch.no_grad():
+        for replica in replicas:
+            if replica is not model:
+                for p, q in zip(params, replica.parameters()):
+                    q.copy_(p)
+    return total

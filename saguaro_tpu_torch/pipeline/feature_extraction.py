@@ -20,6 +20,7 @@ from saguaro_tpu_torch.device import resolve_device
 from saguaro_tpu_torch.io import storage, tiff
 from saguaro_tpu_torch.io.loaddata import load_illum_functions, site_image_paths
 from saguaro_tpu_torch.parallel.distributed import partition_jobs
+from saguaro_tpu_torch.parallel.mesh import Mesh, default_mesh_for
 from saguaro_tpu_torch.pipeline.features import (
     FeatureConfig,
     measure_site,
@@ -65,6 +66,7 @@ def run_feature_extraction_job(
     max_failure_fraction: float = 0.5,
     device: str | torch.device | None = None,
     timer: StageTimer | None = None,
+    mesh: Mesh | None = None,
 ) -> dict[str, str]:
     """One (plate, time) job: segment + measure every site, write 4 tables.
 
@@ -79,6 +81,8 @@ def run_feature_extraction_job(
     to an empty-table placeholder; the same failure on most sites raises
     ``SystemicFailureError``. ``timer`` accumulates the host seconds of the
     stages ``read``, ``segment``, ``dispatch``, ``finalize`` and ``write``.
+    With a ``mesh`` a batch whose size its data axis divides is measured
+    sharded over it (``measure_site_batch_dispatch``).
     """
     dev = resolve_device(device)
     timer = timer or StageTimer()
@@ -183,7 +187,7 @@ def run_feature_extraction_job(
                          .to(device=dev, dtype=torch.int32) for _, _, lb in ok]
                     )
                     handle = measure_site_batch_dispatch(
-                        np.stack([im for _, im, _ in ok]), labels, cfg, device=dev
+                        np.stack([im for _, im, _ in ok]), labels, cfg, device=dev, mesh=mesh
                     )
             except Exception as e:
                 logger.error("batch %s dispatch failed (%s); per-site fallback", nums, e)
@@ -232,9 +236,9 @@ def run_batch_processing(
     feature_cfg: FeatureConfig | None = None,
     resume: bool = True,
     site_batch: int = 8,
-    devices: int | None = None,
     device: str | torch.device | None = None,
     timer: StageTimer | None = None,
+    mesh: Mesh | None | str = None,
 ) -> dict[tuple[str, str], dict[str, str]]:
     """Walk the (plate x time) job grid (the fleet orchestrator's role,
     Feature_extraction_opt.py:73-145): outputs land at
@@ -245,13 +249,17 @@ def run_batch_processing(
     ``<base>/manifest.jsonl`` makes re-runs skip completed jobs.
     ``image_path_for_job(plate, time)`` and ``load_data_key_for_job(plate,
     time)`` encode the project's path conventions (the reference hardcodes
-    them at :153-156). One device only: ``devices`` above 1 raises.
+    them at :153-156). ``mesh``: None (the default) measures each batch on
+    ``device``; a Mesh shards each measurement batch over it; ``"auto"``
+    shards over every visible CUDA device when there are several and
+    ``device`` names no CPU and no one card (``parallel.mesh.
+    default_mesh_for``). Sharded measurement is not the default: no run on
+    several cards has shown it faster yet.
     """
-    if devices not in (None, 1):
-        raise NotImplementedError(
-            f"devices={devices}: sharding site batches over several devices is not "
-            "ported yet (ROADMAP queue 1 item 4); run on one device"
-        )
+    if mesh == "auto":
+        mesh = default_mesh_for(device)
+        if mesh is not None:
+            logger.info("run_batch_processing: %d-device measurement mesh", mesh.size)
     dev = resolve_device(device)
     results = {}
     jobs = partition_jobs([(p, t) for p in plates for t in times])
@@ -276,6 +284,7 @@ def run_batch_processing(
             site_batch=site_batch,
             device=dev,
             timer=timer,
+            mesh=mesh,
         )
         if manifest is not None:
             manifest.mark_done(unit, n_sites=len(load_data))

@@ -15,8 +15,7 @@ intensity and quantiles, Texture (Haralick), RadialDistribution (CP or
 centroid binning), Neighbors, Correlation (Correlation, Slope, Overlap, K,
 Manders, RWC, Costes), Granularity, image intensity and threshold columns,
 with global or adaptive threshold scope and optional smoothing at
-binarisation. Only the second-level Costes descent (``costes_fine_scale``)
-is not: a config that sets it raises ``NotImplementedError``.
+binarisation, and the second-level Costes descent (``costes_fine_scale``).
 """
 
 from __future__ import annotations
@@ -29,7 +28,7 @@ import pandas as pd
 import torch
 from torch.profiler import record_function
 
-from saguaro_tpu_torch.device import resolve_device
+from saguaro_tpu_torch.device import on_device, resolve_device
 from saguaro_tpu_torch.kernels.colocalization import colocalization_features_multiset
 from saguaro_tpu_torch.kernels.fused_measure import fused_object_features
 from saguaro_tpu_torch.kernels.glcm import (
@@ -62,6 +61,7 @@ from saguaro_tpu_torch.kernels.thresholding import (
     smooth_for_binarize,
 )
 from saguaro_tpu_torch.kernels.zernike import ZERNIKE_INDEXES
+from saguaro_tpu_torch.parallel.mesh import Mesh, shard_batch
 
 __all__ = [
     "FeatureConfig",
@@ -147,15 +147,6 @@ class FeatureConfig:
             )
 
 
-def _check_ported(cfg: FeatureConfig) -> None:
-    """Refuse the one option this package does not port."""
-    if cfg.costes_fine_scale is not None:
-        raise NotImplementedError(
-            "saguaro_tpu_torch does not port the second-level Costes descent "
-            "(costes_fine_refine): set costes_fine_scale=None"
-        )
-
-
 def _percentiles(x: torch.Tensor, qs: list[float]) -> list[torch.Tensor]:
     """np.percentile (linear interpolation) of each row of (B, N)."""
     s = torch.sort(x, dim=1).values
@@ -181,7 +172,6 @@ def _measure_all(image: torch.Tensor, nuclei: torch.Tensor, cfg: FeatureConfig) 
     records), which ``chip_smoke.py --profile`` reads.
     """
     b, h, w, n_ch = image.shape
-    _check_ported(cfg)
     # secondary objects grow over the mean of the non-nuclear channels (or
     # the nuclear channel itself when it is the only one)
     body = image[..., 1:].mean(dim=-1) if n_ch > 1 else image[..., 0]
@@ -371,6 +361,7 @@ def _measure_all(image: torch.Tensor, nuclei: torch.Tensor, cfg: FeatureConfig) 
                 costes_scale=cfg.costes_scale,
                 costes_fast=cfg.costes_fast,
                 integer_grid=bool(cfg.integer_intensity_grid),
+                costes_fine_scale=cfg.costes_fine_scale,
             )
         for obj_name, coloc in coloc_all.items():
             feats = out["objects"][obj_name]
@@ -451,16 +442,51 @@ class MeasureHandle:
     """A dispatched measurement (``measure_site_batch_dispatch``): the result
     leaves packed into one host buffer per dtype, filled by a copy that
     ``ready`` (a CUDA event; None on the CPU) marks complete, and where each
-    leaf lies in them."""
+    leaf lies in them. A batch sharded over a mesh has one such handle a
+    shard in ``shards``, in site order (its own ``buffers`` are then
+    empty)."""
 
     buffers: dict[torch.dtype, torch.Tensor]
     leaves: list[tuple[tuple[str, ...], torch.dtype, tuple[int, ...], int]]
     ready: torch.cuda.Event | None
     n_sites: int
+    shards: list[MeasureHandle] = dataclasses.field(default_factory=list)
 
 
-def measure_site_batch_dispatch(images, nuclei_labels, cfg: FeatureConfig, device=None
-                                ) -> MeasureHandle:
+def _dispatch_on(images, nuclei_labels, cfg: FeatureConfig, dev: torch.device) -> MeasureHandle:
+    """Measure a batch on ``dev`` and start fetching its packed leaves."""
+    cuda = dev.type == "cuda"
+    with on_device(dev), torch.no_grad():
+        img = _as_tensor(images, torch.float32, dev)
+        nuc = _as_tensor(nuclei_labels, torch.int32, dev)
+        res = _measure_all(img, nuc, cfg)
+        flat = [(("objects", o, k), v) for o, feats in res["objects"].items()
+                for k, v in feats.items()]
+        flat += [(("image", k), v) for k, v in res["image"].items()]
+        groups: dict[torch.dtype, list[torch.Tensor]] = {}
+        offsets: dict[torch.dtype, int] = {}
+        leaves = []
+        for key, v in flat:
+            off = offsets.get(v.dtype, 0)
+            offsets[v.dtype] = off + v.numel()
+            leaves.append((key, v.dtype, tuple(v.shape), off))
+            groups.setdefault(v.dtype, []).append(v.reshape(-1))
+        buffers, ready = {}, None
+        for dtype, group in groups.items():
+            packed = torch.cat(group)
+            if cuda:
+                host = torch.empty(packed.shape, dtype=dtype, pin_memory=True)
+                host.copy_(packed, non_blocking=True)
+                packed = host
+            buffers[dtype] = packed
+        if cuda:
+            ready = torch.cuda.Event()
+            ready.record(torch.cuda.current_stream(dev))
+    return MeasureHandle(buffers, leaves, ready, img.shape[0])
+
+
+def measure_site_batch_dispatch(images, nuclei_labels, cfg: FeatureConfig, device=None,
+                                mesh: Mesh | None = None) -> MeasureHandle:
     """Measure a same-shape (B, H, W, C) site batch with its (B, H, W) nuclei
     labels on ``device`` (CUDA unless named) and start fetching the result;
     returns a handle for ``measure_site_batch_finalize``.
@@ -472,35 +498,31 @@ def measure_site_batch_dispatch(images, nuclei_labels, cfg: FeatureConfig, devic
     on the device where a fixpoint loop tests convergence. Finalizing this
     batch after dispatching the next overlaps its copy and table building
     with the next batch's device work. On the CPU the packed buffers are the
-    host buffers."""
-    dev = resolve_device(device)
+    host buffers.
+
+    With a ``mesh`` whose data axis divides B, the batch is split into one
+    contiguous shard a data device (``parallel.mesh.shard_batch``) and each
+    shard is measured on its device, with packed buffers and pinned copies
+    of its own; ``device`` is then not used. Otherwise the batch runs
+    unsharded on ``device``, as the reference does."""
     cfg = _resolve_integer_grid(cfg, images)
-    with torch.no_grad():
-        img = _as_tensor(images, torch.float32, dev)
-        nuc = _as_tensor(nuclei_labels, torch.int32, dev)
-        res = _measure_all(img, nuc, cfg)
-    flat = [(("objects", o, k), v) for o, feats in res["objects"].items() for k, v in feats.items()]
-    flat += [(("image", k), v) for k, v in res["image"].items()]
-    groups: dict[torch.dtype, list[torch.Tensor]] = {}
-    offsets: dict[torch.dtype, int] = {}
-    leaves = []
-    for key, v in flat:
-        off = offsets.get(v.dtype, 0)
-        offsets[v.dtype] = off + v.numel()
-        leaves.append((key, v.dtype, tuple(v.shape), off))
-        groups.setdefault(v.dtype, []).append(v.reshape(-1))
-    buffers, ready = {}, None
-    for dtype, group in groups.items():
-        packed = torch.cat(group)
-        if dev.type == "cuda":
-            host = torch.empty(packed.shape, dtype=dtype, pin_memory=True)
-            host.copy_(packed, non_blocking=True)
-            packed = host
-        buffers[dtype] = packed
-    if dev.type == "cuda":
-        ready = torch.cuda.Event()
-        ready.record()
-    return MeasureHandle(buffers, leaves, ready, img.shape[0])
+    if mesh is not None and len(images) % mesh.shape["data"] == 0:
+        imgs, nucs = shard_batch(images, mesh), shard_batch(nuclei_labels, mesh)
+        parts = [_dispatch_on(i, n, cfg, d)
+                 for i, n, d in zip(imgs.shards, nucs.shards, imgs.devices)]
+        return MeasureHandle({}, parts[0].leaves, None, len(imgs), parts)
+    return _dispatch_on(images, nuclei_labels, cfg, resolve_device(device))
+
+
+def _host_leaves(handle: MeasureHandle) -> dict[tuple[str, ...], np.ndarray]:
+    """Wait for a handle's copy and unpack its leaves."""
+    if handle.ready is not None:
+        handle.ready.synchronize()
+    out = {}
+    for key, dtype, shape, off in handle.leaves:
+        n = int(np.prod(shape))
+        out[key] = handle.buffers[dtype][off : off + n].numpy().reshape(shape)
+    return out
 
 
 def measure_site_batch_finalize(
@@ -508,14 +530,16 @@ def measure_site_batch_finalize(
     image_numbers: list[int] | None = None,
     metadata: list[dict] | None = None,
 ) -> list[dict[str, pd.DataFrame]]:
-    """Wait for a dispatched measurement's copy, unpack its leaves and build
-    one {'Image', 'Nuclei', 'Cells', 'Cytoplasm'} table dict per site."""
-    if handle.ready is not None:
-        handle.ready.synchronize()
+    """Wait for a dispatched measurement's copy, unpack its leaves (a sharded
+    batch's shards joined in site order) and build one {'Image', 'Nuclei',
+    'Cells', 'Cytoplasm'} table dict per site."""
+    if handle.shards:
+        parts = [_host_leaves(h) for h in handle.shards]
+        leaves = {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
+    else:
+        leaves = _host_leaves(handle)
     host: dict = {"objects": {}, "image": {}}
-    for key, dtype, shape, off in handle.leaves:
-        n = int(np.prod(shape))
-        arr = handle.buffers[dtype][off : off + n].numpy().reshape(shape)
+    for key, arr in leaves.items():
         if key[0] == "objects":
             host["objects"].setdefault(key[1], {})[key[2]] = arr
         else:
@@ -540,12 +564,14 @@ def measure_site_batch(
     image_numbers: list[int] | None = None,
     metadata: list[dict] | None = None,
     device=None,
+    mesh: Mesh | None = None,
 ) -> list[dict[str, pd.DataFrame]]:
     """Measure a same-shape (B, H, W, C) site batch with its (B, H, W)
-    nuclei labels at once on ``device`` (CUDA unless named); returns one
-    {'Image', 'Nuclei', 'Cells', 'Cytoplasm'} table dict per site
+    nuclei labels at once on ``device`` (CUDA unless named), or sharded over
+    ``mesh`` when its data axis divides B; returns one {'Image', 'Nuclei',
+    'Cells', 'Cytoplasm'} table dict per site
     (``measure_site_batch_dispatch`` then ``measure_site_batch_finalize``)."""
-    handle = measure_site_batch_dispatch(images, nuclei_labels, cfg, device=device)
+    handle = measure_site_batch_dispatch(images, nuclei_labels, cfg, device=device, mesh=mesh)
     return measure_site_batch_finalize(handle, image_numbers, metadata)
 
 

@@ -44,7 +44,7 @@ import numpy as np
 import pandas as pd
 import torch
 
-from saguaro_tpu_torch.device import resolve_device
+from saguaro_tpu_torch.device import on_device, resolve_device
 from saguaro_tpu_torch.io import storage, tiff
 from saguaro_tpu_torch.io.loaddata import filter_qc_passing, site_image_paths
 from saguaro_tpu_torch.kernels.crops import gather_crops, in_bounds, label_centroids
@@ -75,6 +75,7 @@ from saguaro_tpu_torch.models.cellpose_weights import load_torch_cellpose
 from saguaro_tpu_torch.models.checkpoint import NotACheckpoint, load_variables
 from saguaro_tpu_torch.models.effnet_weights import load_torch_effnet
 from saguaro_tpu_torch.models.xgb import XGBEnsemble
+from saguaro_tpu_torch.parallel.mesh import Mesh, default_mesh_for, replicate, shard_batch
 from saguaro_tpu_torch.pipeline.manifest import Manifest
 from saguaro_tpu_torch.utils.timing import StageTimer
 
@@ -115,18 +116,12 @@ class SegmentEmbedConfig:
     # what ``cli/train_segmenter`` writes) or a torch file (cellpose's, timm's)
     cellpose_checkpoint: str | None = None
     effnet_checkpoint: str | None = None
-    devices: int | None = None         # one device; a mesh is not ported
+    devices: int | None = None         # mesh size for default engines
+                                       # (None = all visible, 1 = no mesh)
     fold_bn: bool = True               # fold inference BN into the conv weights
     fold_rgb_stem: bool = True         # gray crops: the stem takes one channel
     cellpose: CellposeConfig = field(default_factory=CellposeConfig)
     effnet: EffNetV2Config = field(default_factory=lambda: EFFNETV2_L)
-
-    def __post_init__(self):
-        if self.devices not in (None, 1):
-            raise NotImplementedError(
-                f"devices={self.devices}: sharding site batches over several devices is not "
-                "ported yet (ROADMAP queue 1 item 4); run on one device"
-            )
 
 
 def _read_checkpoint(path: str, model: torch.nn.Module, load_torch) -> dict:
@@ -153,7 +148,9 @@ def _load_weights(model: torch.nn.Module, state_dict: dict, what: str) -> None:
 class SegmentEmbedEngine:
     """Holds the CPnet, the EfficientNetV2 and the optional dead-cell
     classifier on ``device`` (CUDA unless the caller names one); segments
-    and embeds site batches."""
+    and embeds site batches. With a ``mesh`` (``parallel.mesh``) it keeps
+    one replica of each network a data device and shards site batches and
+    crop chunks over them."""
 
     def __init__(
         self,
@@ -162,6 +159,7 @@ class SegmentEmbedEngine:
         effnet_state_dict: dict | None = None,
         seed: int = 0,
         device: str | torch.device | None = None,
+        mesh: Mesh | None = None,
     ):
         """``cellpose_state_dict``: CPnet weights in cellpose's key layout (a
         cellpose checkpoint, or ``models.cellpose_weights.cellpose_state_dict_from_flax``);
@@ -170,8 +168,16 @@ class SegmentEmbedEngine:
         Without one, the config's checkpoint file is read (the package's own
         format first, then a torch file, as the reference reads them), and
         without that the network gets seeded random weights. The EffNetV2's BatchNorms and
-        RGB stem are folded here, once, on ``device``, as the config says."""
+        RGB stem are folded here, once, on ``device``, as the config says.
+
+        ``mesh``: site batches are split over its 'data' axis, each shard
+        run by a replica of the networks on its data device (the first one,
+        ``device`` unless named, holds the engine's own copy), and the
+        results gathered in site order on ``device``."""
         self.cfg = cfg
+        self.mesh = mesh
+        if device is None and mesh is not None:
+            device = mesh.data_devices[0]
         self.device = resolve_device(device)
         self.cell_model = init_cellpose(cfg.cellpose, seed=seed, device=self.device)
         if cellpose_state_dict is None and cfg.cellpose_checkpoint:
@@ -195,6 +201,11 @@ class SegmentEmbedEngine:
         self._embed_in_ch = self.feat_model.conv_stem.weight.shape[1]
         self.xgb = (XGBEnsemble.from_json(cfg.xgb_model_path, device=self.device)
                     if cfg.xgb_model_path else None)
+        if mesh is not None:
+            self._cell_replicas = replicate(self.cell_model, mesh)
+            self._feat_replicas = replicate(self.feat_model, mesh)
+        else:
+            self._cell_replicas, self._feat_replicas = [self.cell_model], [self.feat_model]
 
     # ---------------- segmentation ----------------
 
@@ -277,6 +288,20 @@ class SegmentEmbedEngine:
         """Single-site ``_drop_bad_flow_masks_batch``: (H, W) + (2, H, W)."""
         return self._drop_bad_flow_masks_batch([labels], flows[None])[0]
 
+    def _shards(self, x: torch.Tensor) -> tuple[list[torch.Tensor], list[int]]:
+        """A batch on the engine's device -> (one shard a replica, in site
+        order; the real sites of each). With a mesh the batch is padded with
+        blank sites to a multiple of the data axis and split over it."""
+        if self.mesh is None:
+            return [x], [x.shape[0]]
+        b, n_data = x.shape[0], self.mesh.shape["data"]
+        pad = (-b) % n_data
+        if pad:
+            x = torch.cat([x, x.new_zeros((pad,) + tuple(x.shape[1:]))])
+        k = x.shape[0] // n_data
+        real = [max(0, min(k, b - i * k)) for i in range(n_data)]
+        return shard_batch(x, self.mesh).shards, real
+
     @torch.no_grad()
     def segment_batch(self, images) -> list[torch.Tensor]:
         """(B, H, W, C) raw site batch (numpy of any dtype, or a tensor) ->
@@ -287,25 +312,40 @@ class SegmentEmbedEngine:
         the rescaled network resolution (diameter -> diam_mean) with an
         area-scaled min-size, and labels are upsampled nearest (half-pixel
         centres, as ``jax.image.resize``) to the input resolution.
-        """
+
+        With a mesh the batch is padded with blank sites to a multiple of
+        its data axis, split over it, and every shard's network pass is
+        queued on its device before any shard's mask recovery (which reads
+        back to the host) starts; the labels come back in site order without
+        the padding."""
         cfg = self.cfg
-        x = convert_input(self._to_device(images), cfg.cellpose.n_channels)
-        flows, cellprob = segment_image_batch(
-            self.cell_model, x, cfg.cellpose, diameter=cfg.diameter,
-            at_network_resolution=True,
-        )
-        h1, w1 = flows.shape[2:]
+        x = self._to_device(images)
         h0, w0 = x.shape[1:3]
+        shards, real = self._shards(x)
+        nets = []
+        for model, shard in zip(self._cell_replicas, shards):
+            with on_device(shard.device):
+                net_in = convert_input(shard, cfg.cellpose.n_channels)
+                nets.append(segment_image_batch(model, net_in, cfg.cellpose, diameter=cfg.diameter,
+                                                at_network_resolution=True))
+        h1, w1 = nets[0][0].shape[2:]
         scale = (h1 * w1) / (h0 * w0)
         min_size_low = max(1, int(round(cfg.min_size * scale))) if cfg.min_size else 0
-        labels_low = compute_masks_batch(
-            flows, cellprob,
-            cellprob_threshold=cfg.cellprob_threshold,
-            n_iters=cfg.flow_iters,
-            min_size=min_size_low,
-        )
-        if cfg.flow_error_threshold is not None:
-            labels_low = self._drop_bad_flow_masks_batch(labels_low, flows / 5.0)
+        labels_low = []
+        for (flows, cellprob), n_real in zip(nets, real):
+            if n_real == 0:  # a shard of padding only
+                continue
+            with on_device(flows.device):
+                low = compute_masks_batch(
+                    flows, cellprob,
+                    cellprob_threshold=cfg.cellprob_threshold,
+                    n_iters=cfg.flow_iters,
+                    min_size=min_size_low,
+                )
+                if cfg.flow_error_threshold is not None:
+                    low = self._drop_bad_flow_masks_batch(low, flows / 5.0)
+            labels_low += low[:n_real]
+        del nets
         if cfg.fill_holes:
             labels_low = [fill_label_holes(np.asarray(lab)) for lab in labels_low]
         lab = torch.as_tensor(np.stack(labels_low).astype(np.int32), device=self.device)
@@ -397,7 +437,9 @@ class SegmentEmbedEngine:
         The valid (cell, channel) crop slots of every site go into one list,
         cell-major and channel-minor (the reference embeds each cell's
         channels one after another, Cellpose_GPU_s3fs.py:177-182), padded to
-        a multiple of ``embed_chunk`` with repeats of slot 0 (discarded).
+        a multiple of ``embed_chunk`` (times the mesh's data axis) with
+        repeats of slot 0 (discarded); with a mesh, consecutive chunks go to
+        the data devices' replicas in turn.
         Each chunk's crops are gathered from the device-resident batch,
         masked, preprocessed and embedded, so peak memory stays O(chunk),
         never the (sites x max_cells x box² x C) pool. The slot list goes to
@@ -425,25 +467,37 @@ class SegmentEmbedEngine:
             np.repeat(cx_np[idx], n_ch),
         ])
         n_flat = slots.shape[1]
-        ck = cfg.embed_chunk
-        n_pad = (-n_flat) % ck
+        # with a mesh a step takes embed_chunk slots a data device
+        ck, n_rep = cfg.embed_chunk, len(self._feat_replicas)
+        n_pad = (-n_flat) % (ck * n_rep)
         if n_pad:
             slots = np.concatenate([slots, np.repeat(slots[:, :1], n_pad, axis=1)], axis=1)
         slots = torch.as_tensor(slots, dtype=torch.int64, device=dev)
         images_chw = images.permute(0, 3, 1, 2).contiguous()
+        # the batch, its labels and the slot list once on each data device
+        on_dev = {images_chw.device: (images_chw, labels, slots)}
+        for model in self._feat_replicas:
+            d = next(model.parameters()).device
+            if d not in on_dev:
+                on_dev[d] = (images_chw.to(d), labels.to(d), slots.to(d))
         feats = torch.empty((n_flat + n_pad, FEATURE_LENGTH), dtype=torch.float32, device=dev)
         for s in range(0, n_flat + n_pad, ck):
-            feats[s : s + ck] = self._embed_chunk(images_chw, labels, slots[:, s : s + ck])
+            model = self._feat_replicas[(s // ck) % n_rep]
+            d = next(model.parameters()).device
+            img_d, lab_d, slots_d = on_dev[d]
+            with on_device(d):
+                feats[s : s + ck] = self._embed_chunk(img_d, lab_d, slots_d[:, s : s + ck], model)
         feats = feats[:n_flat].cpu().numpy().reshape(idx.size, n_ch, FEATURE_LENGTH)
         coords = np.stack([cy_np, cx_np], axis=-1).astype(np.int64)
         site_of = idx // cfg.max_cells
         return [(feats[site_of == i], coords[idx[site_of == i]]) for i in range(b)]
 
-    def _embed_chunk(self, images_chw, labels, slots) -> torch.Tensor:
-        """One chunk: (5, k) slots (site, label, channel, cy, cx) -> (k, 1280)."""
+    def _embed_chunk(self, images_chw, labels, slots, model=None) -> torch.Tensor:
+        """One chunk: (5, k) slots (site, label, channel, cy, cx) -> (k, 1280),
+        by ``model`` (default: the engine's own network)."""
         crops = gather_crops(images_chw, labels, *slots, box=self.cfg.box_size)
         x = preprocess_crops(crops, self.cfg.embed_size, n_channels=self._embed_in_ch)
-        return self.feat_model(x.contiguous(memory_format=EMBED_MEMORY_FORMAT))
+        return (model or self.feat_model)(x.contiguous(memory_format=EMBED_MEMORY_FORMAT))
 
     def embed_site(self, image, labels) -> tuple[np.ndarray, np.ndarray]:
         """Crops and embeddings of one site: (features (n_cells, C, 1280) f32,
@@ -525,7 +579,10 @@ def run_pipeline(
     """End-to-end run, with Cellpose_GPU_s3fs.main's outputs.
 
     ``engine``: a built engine (else one is built from ``cfg`` on
-    ``device``, CUDA unless the caller names one). ``spill_dir``: when
+    ``device``, CUDA unless the caller names one, with a mesh over every
+    visible CUDA device, or ``cfg.devices`` of them, when there are
+    several and ``device`` names no CPU and no one card:
+    ``parallel.mesh.default_mesh_for``). ``spill_dir``: when
     set, each completed site's features, coords and flags are spilled as
     ``<key>.npz`` with a JSONL manifest (the reference's npz spill,
     Cellpose_GPU_s3fs.py:218-223, made restartable): a re-run with the same
@@ -575,7 +632,12 @@ def run_pipeline(
     ]
     n_ch = len(cfg.channels)
     if engine is None and tasks:
-        engine = SegmentEmbedEngine(cfg, device=device)
+        # the production default: site batches sharded over every visible
+        # card (``cfg.devices`` overrides the count; 1 = one device)
+        mesh = default_mesh_for(device, cfg.devices)
+        if mesh is not None:
+            logger.info("run_pipeline: sharding site batches over %d devices", mesh.size)
+        engine = SegmentEmbedEngine(cfg, device=device, mesh=mesh)
     timer = StageTimer()
 
     def record(batch_results: dict[int, dict]):

@@ -324,3 +324,72 @@ def test_cone_plate_and_gradient_cpnet_find_the_nuclei(smoke, tmp_path):
     assert (at_centres > 0).all() and len(set(at_centres.tolist())) == 64
     ids, _ = smoke.expected_cells(labels[None])[0]
     assert set(ids.tolist()) >= set(at_centres[(centres[0] >= 100).all(1) & (centres[0] <= 476).all(1)].tolist())
+
+
+@pytest.fixture(scope="module")
+def main_cpu(smoke):
+    """The main path at 2 sites of 200² on the CPU, for the phases after it."""
+    images, gt = smoke.synthetic_sites(2, 200, seed=3)
+    tables, rec, _ = smoke.run_main_path(images, gt, "cpu")
+    return images, gt, rec, tables
+
+
+def test_fine_costes_rehearsal_on_cpu(smoke, main_cpu, monkeypatch):
+    """The fine Costes phase: K3's plain form runs at ``costes_fine_refine``
+    (the phase's K3Sites wraps it here), every walk stopped on CP's rule
+    inside its window; the card-vs-CPU check on the 128² corners."""
+    monkeypatch.setattr(smoke, "K3_WRAPPED", "sums_plain")
+    images, _, rec, _ = main_cpu
+    fine, k3 = smoke.run_fine_costes(images, rec, "cpu", 4)
+    assert fine["k3_launches"] == k3.calls[smoke.K3_FINE_SITE] > 0
+    assert fine["thresholds"] == 2 * 10 and 0 <= fine["in_bracket"] <= 20
+    assert fine["truncated"] == 0
+    assert fine["costes_columns"] == 2 * 3 * 20
+    assert smoke.check_fine_costes_against_cpu(images, rec, "cpu")["max_steps"] == 0.0
+    assert smoke.fine_window(2.0, 65535, 255) == (2 * 257 - 2828, 514)
+
+
+def test_oracles_rehearsal_on_cpu(smoke, main_cpu, monkeypatch):
+    monkeypatch.setattr(smoke, "K3_WRAPPED", "sums_plain")
+    images, gt, _, _ = main_cpu
+    got = smoke.check_oracles(images, gt, "cpu")
+    assert set(got["k3_calls"]) == {"moments_features", "multichannel_stats",
+                                    "edge_intensity_multichannel", "radial_distribution_multichannel"}
+    assert set(got["worst_of_tol"]) == {"moments", "intensity", "edge", "radial", "corr"}
+
+
+def test_granularity_rehearsal_on_cpu(smoke, main_cpu):
+    got = smoke.check_granularity(main_cpu[0], "cpu")
+    assert got["max_abs_err"] == 0.0 and got["scale"] > 0
+
+
+def test_mesh_rehearsal_on_cpu(smoke, main_cpu):
+    """The mesh phase on a 2-entry CPU mesh with a tiny EfficientNet: cone
+    sites segmented sharded as unsharded (3 and 2 sites, the second padded),
+    the measurement sharded against the main path's tables, the pooled
+    embed and 3 training steps with and without the mesh."""
+    from saguaro_tpu_torch.models.effnetv2 import EffNetV2Config, StageSpec
+    from saguaro_tpu_torch.pipeline.segment_embed import SegmentEmbedConfig
+
+    images, gt, rec, tables = main_cpu
+    tiny = EffNetV2Config(stem_filters=4, stages=(StageSpec("fused", 1, 3, 1, 4, 1),),
+                          head_filters=1280, input_size=32)
+    cfg = SegmentEmbedConfig(channels=list(smoke.CHANNELS), diameter=100.0, box_size=40,
+                             embed_size=32, embed_chunk=8, effnet=tiny)
+    got = smoke.run_mesh_phase(images, gt, rec, tables, "cpu", [], cfg=cfg)
+    assert got["segment_2_objects"] == [4, 4] and got["segment_1_objects"] == [4]
+    assert got["measure_2_worst"] <= 1e-4 and got["train_loss_rel"] <= smoke.MESH_LOSS_RTOL
+    assert len(got["shard_launches"]) == 2  # one dispatch a shard, counted on its own
+
+
+def test_shard_launch_check_names_the_idle_shard(smoke):
+    """Every shard of a sharded measurement must launch each kernel, and the
+    shards' counts must add up to the run's."""
+    a, b = {"seg_counts": 49, "seg_pick2": 1}, {"seg_counts": 49, "seg_pick2": 0}
+    smoke.check_shard_launches([a, dict(a)], {"seg_counts": 98, "seg_pick2": 2}, 2, ["seg_pick2"])
+    with pytest.raises(AssertionError, match="shard 1 .* did not launch \\['seg_pick2'\\]"):
+        smoke.check_shard_launches([a, b], {"seg_counts": 98, "seg_pick2": 1}, 2, ["seg_pick2"])
+    with pytest.raises(AssertionError, match="do not add up"):
+        smoke.check_shard_launches([a, dict(a)], {"seg_counts": 147, "seg_pick2": 2}, 2, [])
+    with pytest.raises(AssertionError, match="1 shards, not 2"):
+        smoke.check_shard_launches([a], {"seg_counts": 49, "seg_pick2": 1}, 2, [])

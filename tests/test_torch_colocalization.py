@@ -174,8 +174,51 @@ def test_multiset_ranks_reach_pass_e_without_a_copy(sites, monkeypatch):
     _hold_multiset(got, img, sets, vmax, True)
 
 
-def test_costes_fine_scale_not_ported(sites):
-    img, lab, _ = sites
-    with pytest.raises(NotImplementedError, match="costes_fine"):
-        port.colocalization_features(torch.from_numpy(img), torch.from_numpy(lab),
-                                     torch.zeros((2, MC, 3)), MC, costes_fine_scale=65535)
+def test_costes_fine_scale_refines_each_set(sites):
+    """With ``costes_fine_scale`` every object set's Costes thresholds come
+    from the fine descent. Where CP's f64 descent (``cp_linear_costes_oracle``)
+    stops with at least 10 of the set's pixels below its thresholds, the
+    port's thresholds lie within 2 fine steps of it and of the reference's,
+    and where the port's and the reference's are equal the C1/C2 columns
+    agree within the feature tolerance. Where fewer pixels are left below
+    (this fixture's correlated third pair walks down to the background's
+    edge), the Pearson of 2 to 5 pixels decides the stop, from sums whose
+    rounding differs on each side; there the thresholds are only held to be
+    finite steps of the fine grid."""
+    from .oracles import cp_linear_costes_oracle
+
+    img, nuc, cyto = sites
+    sets, vmax = _multiset_inputs(img, nuc, cyto)
+    got = port.colocalization_features_multiset(
+        torch.from_numpy(img), {k: torch.from_numpy(v) for k, v in sets.items()},
+        {k: torch.from_numpy(v) for k, v in vmax.items()}, MC, costes_fine_scale=65535)
+    step = 1.0 / 65535
+    n_held = n_equal = 0
+    for s in range(len(img)):
+        want = ref.colocalization_features_multiset(
+            jnp.asarray(img[s]), {k: jnp.asarray(v[s]) for k, v in sets.items()},
+            {k: jnp.asarray(v[s]) for k, v in vmax.items()}, MC, costes_fine_scale=65535)
+        vals = img[s].reshape(-1, img.shape[-1]).astype(np.float64) / 65535
+        for nm in want:
+            inside = sets[nm][s].reshape(-1) > 0
+            tf, ts = (t[s].numpy() for t in got[nm]["costes_thr"])
+            rf, rs = (np.asarray(t) for t in want[nm]["costes_thr"])
+            assert np.all(np.isfinite(tf)) and np.all(np.abs(tf * 65535 - np.round(tf * 65535)) < 1e-2)
+            for i, (a, c) in enumerate(PAIRS):
+                cf, cs = cp_linear_costes_oracle(vals[inside, a], vals[inside, c], 65535, True)
+                below = (vals[inside, a] < cf) | (vals[inside, c] < cs)
+                if below.sum() < 10:
+                    continue
+                n_held += 1
+                assert abs(tf[i] - cf) <= 2 * step + 1e-9, (nm, (a, c), tf[i] * 65535, cf * 65535)
+                assert abs(tf[i] - rf[i]) <= 2 * step + 1e-9, (nm, (a, c), tf[i], rf[i])
+                assert abs(ts[i] - rs[i]) <= abs(rs[i]) * 1e-3 + 2 * step
+                if tf[i] != rf[i]:
+                    continue
+                n_equal += 1
+                for stat in ("C1", "C2"):
+                    r = np.asarray(want[nm][(a, c)][stat], np.float64)
+                    g = got[nm][(a, c)][stat][s].numpy()
+                    tol = feature_tolerance(stat, r, None, *img.shape[1:3])
+                    assert np.all(np.abs(g - r) <= tol), (nm, (a, c), stat, r, g)
+    assert n_held >= 10 and n_equal >= 10

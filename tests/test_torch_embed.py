@@ -6,7 +6,7 @@ and features within rtol 1e-4, for an empty site, an all-empty batch, a
 padded last chunk and ``max_cells`` truncation; extraction sees only
 (chunk, box, box) tensors; ``run_pipeline``'s four files match the
 reference's, a spill resume computes nothing, a bad file degrades one
-site; the CLI keeps its flags and refuses several devices."""
+site; the CLI keeps its flags and passes ``--devices`` on to the mesh."""
 
 import logging
 
@@ -306,10 +306,16 @@ def test_cli_keeps_the_reference_flags(capsys):
 
 
 @pytest.mark.parametrize("devices", ["2", "8"])
-def test_cli_refuses_several_devices(devices):
+def test_cli_passes_devices_to_the_mesh(devices, tmp_path, monkeypatch):
+    """``--devices`` reaches ``SegmentEmbedConfig.devices``, the mesh size
+    ``run_pipeline`` builds its default engine's mesh from."""
     from saguaro_tpu_torch.cli.segment_embed import main
 
-    argv = ["--bucket_input", "b", "--data_base_path", "d", "--load_data_key", "k",
+    pd.DataFrame({"Metadata_Well": ["A01"]}).to_csv(tmp_path / "k.csv", index=False)
+    seen = []
+    monkeypatch.setattr(se, "run_pipeline", lambda load_data, base, cfg, out, **kw: seen.append(cfg)
+                        or {})
+    argv = ["--bucket_input", str(tmp_path), "--data_base_path", "d", "--load_data_key", "k.csv",
             "--channels", "DNA", "--out_data_path", "o.parquet", "--devices", devices]
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        main(argv)
+    main(argv)
+    assert [c.devices for c in seen] == [int(devices)]

@@ -231,8 +231,72 @@ def test_process_info_reads_the_process_group(tmp_path):
         dist.destroy_process_group()
 
 
-@pytest.mark.parametrize("devices", [2, 4])
-def test_grid_refuses_several_devices(grid, tmp_path, devices):
-    with pytest.raises(NotImplementedError, match="devices"):
-        run_batch_processing(**_grid_kw(grid, str(tmp_path / "multi")),
-                             feature_cfg=FeatureConfig(**KW), devices=devices, device="cpu")
+@pytest.mark.parametrize("devices", [2, 3])
+def test_grid_measures_sharded_over_a_mesh(grid, tmp_path, devices):
+    """With a mesh the job grid's batches of ``devices`` sites are measured
+    sharded over it (a shorter last batch unsharded); the tables equal the
+    one-device run's to the reference's sharded tolerance (rtol 1e-5, atol
+    2e-6: a shard's f32 means sum in another order)."""
+    from saguaro_tpu_torch.parallel.mesh import make_mesh
+
+    kw = dict(feature_cfg=FeatureConfig(**KW), site_batch=devices, device="cpu", resume=False)
+    want = run_batch_processing(**_grid_kw(grid, str(tmp_path / "one")), mesh=None, **kw)
+    got = run_batch_processing(**_grid_kw(grid, str(tmp_path / "multi")),
+                               mesh=make_mesh(devices=["cpu"] * devices), **kw)
+    assert list(got) == list(want)
+    for job, files in want.items():
+        for name, path in files.items():
+            pd.testing.assert_frame_equal(pd.read_csv(got[job][name]), pd.read_csv(path),
+                                          rtol=1e-5, atol=2e-6)
+
+
+@pytest.mark.parametrize("device,mesh,size", [
+    ("cpu", "default", None), ("cpu", "auto", None), (None, "default", None), (None, "auto", 8)])
+def test_grid_shards_measurement_only_when_asked(grid, tmp_path, monkeypatch, device, mesh, size):
+    """With eight devices visible (patched) the job grid measures on one
+    device unless ``mesh="auto"`` asks for the visible cards, and not then
+    either when ``device`` names the CPU."""
+    from saguaro_tpu_torch.parallel import mesh as pm
+
+    monkeypatch.setattr(pm, "visible_devices", lambda: [torch.device("cpu")] * 8)
+    monkeypatch.setattr(fe, "resolve_device", lambda d: torch.device("cpu"))
+    seen = []
+    monkeypatch.setattr(fe, "run_feature_extraction_job",
+                        lambda *a, **kw: seen.append(kw["mesh"]) or {})
+    kw = dict(device=device) if mesh == "default" else dict(device=device, mesh=mesh)
+    run_batch_processing(**_grid_kw(grid, str(tmp_path)), resume=False, **kw)
+    assert len(seen) == len(GRID_PLATES) * len(GRID_TIMES)
+    assert all((m is None) if size is None else m.size == size for m in seen)
+
+
+def test_distinct_errors_do_not_trip_systemic(grid, tmp_path):
+    """Two of a job's three sites failing with DIFFERENT errors is not
+    systemic: the detector keys on the most common identical exception
+    (the reference's ``tests/test_failure_contract.py`` case, through the
+    job grid). Every job still writes a row a site; the same error on those
+    two sites does raise."""
+    root, segmenter = grid
+    calls = {"n": 0}
+
+    def flaky(distinct):
+        def seg(image):
+            i = calls["n"]
+            calls["n"] += 1
+            if i % 3 != 1:  # the first and third site of each job
+                raise RuntimeError(f"flaky read {i}" if distinct else "flaky read")
+            return segmenter(image)
+        return seg
+
+    kw = _grid_kw(grid, str(tmp_path / "distinct"))
+    kw["segmenter"] = flaky(True)
+    got = run_batch_processing(**kw, feature_cfg=FeatureConfig(**KW), device="cpu", mesh=None)
+    assert len(got) == len(GRID_PLATES) * len(GRID_TIMES)
+    for files in got.values():
+        image = pd.read_csv(files["Image"])
+        assert list(image["ImageNumber"]) == [1, 2, 3]
+        assert set(pd.read_csv(files["Nuclei"])["ImageNumber"]) == {2}
+    calls["n"] = 0
+    kw = _grid_kw(grid, str(tmp_path / "same"))
+    kw["segmenter"] = flaky(False)
+    with pytest.raises(SystemicFailureError, match="flaky read"):
+        run_batch_processing(**kw, feature_cfg=FeatureConfig(**KW), device="cpu", mesh=None)

@@ -77,3 +77,28 @@ def test_granularity_spectrum_close(sites):
     for s in range(len(img)):
         want = np.asarray(ref.granularity_spectrum_cp(img[s], **kw))
         np.testing.assert_allclose(got[s], want, rtol=0, atol=1e-4 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("length", [8, 16])
+def test_legacy_granularity_spectrum_matches_reference(sites, length):
+    """Within 1e-6 of the spectrum's largest element: each element is the
+    difference of two f32 image means, summed in another order on each side
+    (where the exact value is 0 the reference gives about -1e-6)."""
+    img = np.ascontiguousarray(sites[0][..., 0])
+    got = port.granularity_spectrum(torch.from_numpy(img), length).numpy()
+    assert got.shape == (len(img), length)
+    for s in range(len(img)):
+        want = np.asarray(ref.granularity_spectrum(jnp.asarray(img[s]), length))
+        np.testing.assert_allclose(got[s], want, rtol=0, atol=1e-6 * np.abs(want).max())
+
+
+def test_legacy_granularity_spectrum_shape():
+    """The reference's shape and monotonicity check
+    (``tests/test_features.py``) on the port: fine noise loses most of its
+    volume at small radii."""
+    rng = np.random.default_rng(0)
+    img = rng.random((2, 64, 64)).astype(np.float32)
+    g = port.granularity_spectrum(torch.from_numpy(img), 8).numpy()
+    assert g.shape == (2, 8)
+    assert np.isfinite(g).all()
+    assert (g[:, 0] > g[:, -1]).all()

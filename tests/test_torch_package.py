@@ -1,7 +1,8 @@
 """Package boundaries of the PyTorch port: it imports neither JAX nor the
 reference package, its entry points refuse to fall back to the CPU, its
 CUDA wrappers refuse CPU tensors, every family of the default config is
-measured, and the one unported option is refused."""
+measured, and so are the second-level Costes descent and the CLI's
+device mesh."""
 
 import ast
 import os
@@ -56,6 +57,8 @@ def test_import_leaves_out_jax_and_reference():
         "import saguaro_tpu_torch.cli.train_segmenter, saguaro_tpu_torch.models.cellpose_train\n"
         "import saguaro_tpu_torch.models.checkpoint, saguaro_tpu_torch.models.cellpose_weights\n"
         "import saguaro_tpu_torch.models.effnet_weights\n"
+        "import saguaro_tpu_torch.parallel.mesh, saguaro_tpu_torch.kernels.moments\n"
+        "import saguaro_tpu_torch.kernels.multichannel\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'msgpack', 'saguaro_tpu', "
         "'matplotlib', 'seaborn')]\n"
         "print(bad)\n"
@@ -284,16 +287,25 @@ def test_cuda_wrapper_refuses_cpu_tensors(name):
     assert sc.LAUNCHES == before
 
 
-@pytest.mark.parametrize("flag,family", [("costes_fine_scale", "costes")])
-def test_unported_family_raises_naming_it(flag, family):
+def test_costes_fine_scale_is_measured():
+    """``costes_fine_scale`` (the second-level Costes descent) measures the
+    Costes columns: finite, the same rows and columns as the coarse
+    descent's; the values are held against the reference in
+    test_torch_costes_fine."""
     import dataclasses
 
-    cfg = dataclasses.replace(_slice_cfg(), **{flag: 65535})
-    with pytest.raises(NotImplementedError, match=family):
-        measure_site_batch(
-            np.zeros((1, 16, 16, 2), np.float32), np.zeros((1, 16, 16), np.int32), cfg,
-            device="cpu",
-        )
+    from .torch_data import blob_sites
+
+    img, lab = blob_sites(n_sites=2, h=40, w=44, n_ch=2, n_cells=5, seed=2)
+    coarse = dataclasses.replace(_slice_cfg(), measure_colocalization=True)
+    fine = dataclasses.replace(coarse, costes_fine_scale=65535)
+    base = measure_site_batch(img.astype(np.uint16), lab, coarse, device="cpu")
+    got = measure_site_batch(img.astype(np.uint16), lab, fine, device="cpu")
+    for b, g in zip(base, got):
+        for name in ("Nuclei", "Cells", "Cytoplasm"):
+            assert list(g[name].columns) == list(b[name].columns) and len(g[name]) == len(b[name])
+            costes = g[name][["Correlation_Costes_DNA_GFP", "Correlation_Costes_GFP_DNA"]]
+            assert len(costes) > 0 and np.isfinite(costes.to_numpy(np.float64)).all()
 
 
 @pytest.mark.parametrize(
@@ -333,13 +345,52 @@ def test_pallas_dispatch_pin_refused():
         FeatureConfig(channels=("DNA",), pallas_dispatch=True)
 
 
-def test_feature_extraction_cli_refuses_several_devices():
+@pytest.mark.parametrize("devices,device,size", [
+    ("2", None, 2), ("4", None, 4), ("1", None, None), (None, None, None), (None, "cpu", None),
+    ("1", "cpu", None)])
+def test_feature_extraction_cli_builds_a_mesh(monkeypatch, devices, device, size):
+    """``--devices`` sizes the mesh (``default_mesh_for``) that both the
+    engine and the job grid shard over, among the visible devices (8
+    entries here, patched); unset or 1, no mesh, and none with ``--device
+    cpu`` either."""
     from saguaro_tpu_torch.cli.feature_extraction import main
+    from saguaro_tpu_torch.parallel import mesh as pm
+    from saguaro_tpu_torch.pipeline import feature_extraction as fe
+    from saguaro_tpu_torch.pipeline import segment_embed as se
 
-    with pytest.raises(NotImplementedError, match="devices=2"):
-        main(["--bucket_name", "x", "--base_output_path", "y", "--plates", "P1", "--channels", "DNA",
-              "--image_path_template", "{plate}", "--load_data_template", "{plate}.csv",
-              "--devices", "2", "--device", "cpu"])
+    monkeypatch.setattr(pm, "visible_devices", lambda: [torch.device("cpu")] * 8)
+    seen = {}
+
+    class Engine:
+        def __init__(self, cfg, device=None, mesh=None):
+            seen["engine"] = mesh
+
+    def grid(**kw):
+        seen["grid"] = kw["mesh"]
+        return {}
+
+    monkeypatch.setattr(se, "SegmentEmbedEngine", Engine)
+    monkeypatch.setattr(fe, "run_batch_processing", grid)
+    argv = ["--bucket_name", "x", "--base_output_path", "y", "--plates", "P1", "--channels", "DNA",
+            "--image_path_template", "{plate}", "--load_data_template", "{plate}.csv",
+            ] + (["--devices", devices] if devices else []) + (["--device", device] if device else [])
+    main(argv)
+    assert seen["engine"] is seen["grid"]
+    assert (seen["grid"] is None) if size is None else seen["grid"].size == size
+
+
+def test_feature_extraction_cli_refuses_a_mesh_on_the_cpu(monkeypatch):
+    """``--device cpu --devices 2`` asks for two things at once: refused,
+    with the visible devices patched to eight."""
+    from saguaro_tpu_torch.cli.feature_extraction import main
+    from saguaro_tpu_torch.parallel import mesh as pm
+
+    monkeypatch.setattr(pm, "visible_devices", lambda: [torch.device("cpu")] * 8)
+    argv = ["--bucket_name", "x", "--base_output_path", "y", "--plates", "P1", "--channels", "DNA",
+            "--image_path_template", "{plate}", "--load_data_template", "{plate}.csv",
+            "--device", "cpu", "--devices", "2"]
+    with pytest.raises(ValueError, match="mesh of 2 devices asked for with device cpu"):
+        main(argv)
 
 
 def _calls_share_cpu_threads(tree: ast.Module) -> bool:

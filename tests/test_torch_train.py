@@ -181,11 +181,26 @@ def test_training_keeps_batchnorm_statistics(trained):
             torch.testing.assert_close(got.variables[k], v, rtol=0, atol=0)
 
 
-def test_mesh_is_refused():
-    images, flows, probs = _training_set(1)
-    with pytest.raises(NotImplementedError, match="mesh"):
-        cellpose_train.train_cellpose(images, flows, probs, CellposeConfig(tile=TILE, features=FEATURES),
-                                      n_steps=1, mesh=object(), device="cpu")
+@pytest.mark.parametrize("batch_size", [4, 3], ids=["even", "uneven"])
+def test_mesh_trains_as_one_device(batch_size):
+    """Data-parallel steps over a 2-entry mesh (each replica's shard loss
+    weighted by its share of the batch, the gradients summed onto the
+    first device) give the one-device run's losses and weights after 3
+    steps: the same whole-batch mean, summed in another order."""
+    from saguaro_tpu_torch.parallel.mesh import make_mesh
+
+    images, flows, probs = _training_set(6, seed=3)
+    cfg = CellposeConfig(tile=TILE, features=FEATURES, compute_dtype="float32")
+    kw = dict(n_steps=3, batch_size=batch_size, learning_rate=1e-3, seed=1)
+    one = cellpose_train.train_cellpose(images, flows, probs, cfg, device="cpu", **kw)
+    two = cellpose_train.train_cellpose(images, flows, probs, cfg,
+                                        mesh=make_mesh(devices=["cpu", "cpu"]), **kw)
+    np.testing.assert_allclose(two.losses, one.losses, rtol=1e-5)
+    for k, v in one.variables.items():
+        # an Adam update is about lr whatever the gradient's size, so a
+        # near-zero gradient summed in another order could move a weight by
+        # up to 2 lr a step; here they agree to about 1e-6
+        torch.testing.assert_close(two.variables[k], v, rtol=0, atol=1e-4, msg=k)
 
 
 @pytest.mark.slow
