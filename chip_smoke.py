@@ -2139,6 +2139,27 @@ def run_profile_chain(root: str, times, out: str, dev) -> dict:
     return secs
 
 
+def selection_ties(root: str, out: str) -> tuple[int, int, int]:
+    """(kept feature columns, feature columns entering selection, pairs of
+    identical columns with one member kept) of ``run_profile_chain``'s run
+    into ``root/out``: the ties that the f32 rank sums break (the port
+    computes them as the reference does)."""
+    import pandas as pd
+
+    norm_dir = os.path.join(root, out, "normalized")
+    normalized = pd.concat([pd.read_csv(os.path.join(d, f)) for d, _, fs in os.walk(norm_dir)
+                            for f in sorted(fs) if f.endswith(".csv")], ignore_index=True)
+    features = [c for c in normalized.columns if "Metadata" not in c]
+    raw = os.path.join(root, out, "selected", "Exp_CP_features_selected_allTimes_raw.csv")
+    kept = {c for c in pd.read_csv(raw, nrows=0).columns if "Metadata" not in c}
+    groups: dict[bytes, list[str]] = {}
+    for c in features:
+        groups.setdefault(normalized[c].to_numpy("float64").tobytes(), []).append(c)
+    ties = sum(1 for g in groups.values() for i, a in enumerate(g) for b in g[i + 1:]
+               if (a in kept) != (b in kept))
+    return len(kept), len(features), ties
+
+
 def hold_profile_chain(root: str, times, dev, label: str) -> dict:
     """``run_profile_chain`` on the card and on the CPU over the same
     files: the same output files, and every CSV the same table (columns,
@@ -2160,7 +2181,10 @@ def hold_profile_chain(root: str, times, dev, label: str) -> dict:
         + json.dumps({k: round(v, 4) for k, v in on_card.items()}) + ", on the CPU "
         + json.dumps({k: round(v, 4) for k, v in on_cpu.items()}) + "; shapes "
         + json.dumps({os.path.basename(k): v for k, v in shapes.items()}))
-    return {"card_s": on_card, "cpu_s": on_cpu, "csvs": len(shapes)}
+    kept, n_features, ties = selection_ties(root, "chain_card")
+    log(f"feature selection {label}: {kept} of {n_features} columns kept, the card's and the "
+        f"CPU's the same; {ties} ties of identical columns resolved by the reference's f32 rank sums")
+    return {"card_s": on_card, "cpu_s": on_cpu, "csvs": len(shapes), "kept": kept, "ties": ties}
 
 
 def run_profile_phase(grid_root: str, dev, times=("6", "24"), n_wells: int = 384,

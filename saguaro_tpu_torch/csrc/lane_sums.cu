@@ -395,12 +395,13 @@ struct SagCZernike {
   }
   __device__ __forceinline__ void pixel(const float*, const float*, long long) {
     const float dy = (float)s.iy - cy, dx = (float)s.ix - cx;
-    const float dist = sqrtf(dy * dy + dx * dx);
+    const float dist = sqrtf(fmaf(dy, dy, __fmul_rn(dx, dx)));
     const float rho = fminf(dist * inv_rmax, 1.0f);
-    float rp[10];
-    rp[0] = 1.0f;
-#pragma unroll
-    for (int k = 1; k < 10; ++k) rp[k] = rp[k - 1] * rho;
+    // rho**k rounded as the reference's integer powers (square and multiply)
+    const float x2 = __fmul_rn(rho, rho), x4 = __fmul_rn(x2, x2), x8 = __fmul_rn(x4, x4);
+    const float x3 = __fmul_rn(rho, x2);
+    const float rp[10] = {1.0f, rho, x2, x3, x4, __fmul_rn(rho, x4), __fmul_rn(x2, x4),
+                          __fmul_rn(x3, x4), x8, __fmul_rn(rho, x8)};
     // cos/sin(m*theta) by angle addition on (cos, sin) = (dx, dy) / dist;
     // both are 0 at dist == 0, where every m > 0 radial vanishes
     const float inv_d = dist > 0.0f ? 1.0f / fmaxf(dist, 1e-30f) : 0.0f;

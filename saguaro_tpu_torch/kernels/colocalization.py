@@ -50,6 +50,7 @@ __all__ = [
 ]
 
 _BIG = 3.4e38
+_SCAN_BLOCK = 16
 
 
 def _exclusive_cumsum(x: torch.Tensor, dim: int) -> torch.Tensor:
@@ -90,12 +91,38 @@ def _value_count_tables(hi: torch.Tensor, lo: torch.Tensor, insides: list) -> to
     return torch.stack(out, dim=1)
 
 
+def _xla_cumsum(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive f32 cumsum along the last dim in the order of XLA's CPU
+    backend, which rewrites the reference's ``jnp.cumsum`` (a reduce-window)
+    as a scan of blocks of 16: each block summed in order, the blocks'
+    totals scanned the same way (recursively), and each block's running sums
+    added to the total of the blocks before it. Every add is one f32
+    rounding, so the card and the CPU give the reference's bits."""
+    n = x.shape[-1]
+    nb = -(-n // _SCAN_BLOCK)
+    blocks = torch.nn.functional.pad(x, (0, nb * _SCAN_BLOCK - n)).reshape(
+        *x.shape[:-1], nb, _SCAN_BLOCK).clone()
+    for j in range(1, _SCAN_BLOCK):
+        blocks[..., j] = blocks[..., j - 1] + blocks[..., j]
+    if nb > 1:
+        tot = _xla_cumsum(blocks[..., -1])
+        blocks[..., 1:, :] = blocks[..., 1:, :] + tot[..., :-1, None]
+    return blocks.reshape(*x.shape[:-1], nb * _SCAN_BLOCK)[..., :n]
+
+
 def _suffix2(table: torch.Tensor) -> torch.Tensor:
-    """S[b, i, j] = sum_{a >= i, c >= j} table[b, a, c], padded with a zero
-    row and column."""
-    s = torch.flip(torch.cumsum(torch.flip(table, (1,)), dim=1), (1,))
-    s = torch.flip(torch.cumsum(torch.flip(s, (2,)), dim=2), (2,))
+    """S[..., i, j] = sum_{a >= i, c >= j} table[..., a, c] (f32, the
+    reference's ``_suffix2``: reversed cumsums along a, then c, in
+    ``_xla_cumsum``'s order), padded with a zero row and column."""
+    s = torch.flip(_xla_cumsum(torch.flip(table, (-2,)).transpose(-1, -2)).transpose(-1, -2),
+                   (-2,))
+    s = torch.flip(_xla_cumsum(torch.flip(s, (-1,))), (-1,))
     return torch.nn.functional.pad(s, (0, 1, 0, 1))
+
+
+def _fma32_host(a, b, c) -> np.float32:
+    """``segment_cuda.fma32`` of host scalars."""
+    return np.float32(np.float64(a) * np.float64(b) + np.float64(c))
 
 
 def _joint_tables(code_s, pairs, insides, s_codes):
@@ -134,10 +161,14 @@ def costes_thresholds(
     (thr_f (B, P), thr_s (B, P)) in the same units. Thresholds step on the
     1/scale grid as CP's descent does; the region moments of each step come
     from suffix sums of the joint count tables (exact for values on the
-    grid, bin floors otherwise). The statistic is evaluated exactly, from
-    int64 moments of the grid codes, so its sign, which stops the descent,
-    is exact where f32 sums could round a near-zero or constant-input
-    statistic either way.
+    grid, bin floors otherwise). The statistic is evaluated in the
+    reference's f32 arithmetic, operation for operation (``_suffix2``'s
+    scan order, ``segment_cuda.fma32``'s contractions, correctly rounded
+    square roots): its sign stops the descent, and where few pixels lie
+    below a step or the channels barely correlate the f32 sums round it
+    either way, so only the same roundings stop at the reference's step.
+    They are IEEE operations in a fixed order, the same bits on the card
+    and the CPU.
 
     ``return_bracket=True`` also returns ``(regs (B, P, 2), thr_k (B, P),
     prev_k (B, P))``: the regression line, the stopping grid index and the
@@ -152,18 +183,17 @@ def costes_thresholds(
         (joint,) = _joint_tables(code, pairs, [inside], s_codes)
     insf = inside.float()
     i_step = 1.0 / scale
-    # region moments in integer grid codes: Pearson is scale-free, and the
-    # int64 sums are exact (n * sum(code**2) < 2**63 up to ~5M pixels a site)
-    kk = torch.arange(s_codes, dtype=torch.int64, device=dev)
-    ka, kb = kk[:, None], kk[None, :]
+    step32 = np.float32(i_step)
+    # the grid's values and the region moments in the reference's f32
+    val = torch.arange(s_codes, dtype=torch.float32, device=dev) * torch.tensor(step32, device=dev)
+    va, vb = val[:, None], val[None, :]
 
-    sufs, regs, maxes = [], [], []
+    moments, regs, maxes = [], [], []
     for a, c in pairs:
-        cnt2 = joint[(a, c)].to(torch.int64)
-        sufs.append(torch.stack([
-            _suffix2(cnt2), _suffix2(cnt2 * ka), _suffix2(cnt2 * kb),
-            _suffix2(cnt2 * ka * ka), _suffix2(cnt2 * kb * kb), _suffix2(cnt2 * ka * kb),
-        ], dim=1))  # (B, 6, S+1, S+1)
+        cnt2 = joint[(a, c)].float()
+        moments.append(torch.stack([
+            cnt2, cnt2 * va, cnt2 * vb, cnt2 * va * va, cnt2 * vb * vb, cnt2 * va * vb,
+        ], dim=1))  # (B, 6, S, S)
         # the orthogonal regression line over pixels where either channel > 0
         fa, fb = values[..., a], values[..., c]
         nz = insf * ((fa > 0) | (fb > 0)).float()
@@ -183,7 +213,7 @@ def costes_thresholds(
             torch.where(inside, fa, torch.full_like(fa, -_BIG)).amax(dim=1),
             torch.where(inside, fb, torch.full_like(fb, -_BIG)).amax(dim=1),
         ], dim=1))
-    suf = torch.stack(sufs, dim=1)    # (B, P, 6, S+1, S+1)
+    suf = _suffix2(torch.stack(moments, dim=1))   # (B, P, 6, S+1, S+1)
     reg = torch.stack(regs, dim=1)    # (B, P, 2)
     mx = torch.stack(maxes, dim=1)    # (B, P, 2)
     n_pairs = len(pairs)
@@ -191,49 +221,50 @@ def costes_thresholds(
     # Pearson of the pixels outside the [ia:, jb:] rectangle at every grid
     # step k (thr_f = k / scale), all pairs and sites at once
     ks = torch.arange(s_codes + 1, dtype=torch.float32, device=dev)
-    thr_f = ks * i_step
-    thr_s = reg[..., :1] * thr_f + reg[..., 1:]                      # (B, P, K)
+    thr_f = ks * torch.tensor(step32, device=dev)
+    thr_s = sc.fma32(reg[..., :1], thr_f, reg[..., 1:])                # (B, P, K)
     ia = torch.clamp(ks, 0, s_codes).to(torch.int64).expand_as(thr_s)
-    jb = torch.clamp(torch.ceil(thr_s * scale), 0, s_codes).to(torch.int64)
+    # a site without spread (covariance 0) has a NaN regression line; its
+    # second threshold reads as code 0, as XLA converts NaN to an integer
+    jb = torch.clamp(torch.ceil(thr_s * scale), 0, s_codes).nan_to_num(0.0).to(torch.int64)
     flat = suf.reshape(b, n_pairs, 6, (s_codes + 1) ** 2)
     rect = torch.gather(flat, 3, (ia * (s_codes + 1) + jb)[:, :, None, :].expand(-1, -1, 6, -1))
     n, sf, ss, sff, sss, sfs = (flat[:, :, i, :1] - rect[:, :, i] for i in range(6))
-    num = (n * sfs - sf * ss).double()
-    var_f, var_s = n * sff - sf * sf, n * sss - ss * ss
+    num = sc.fma32(n, sfs, -(sf * ss))
+    var_f = torch.clamp(sc.fma32(n, sff, -(sf * sf)), min=0.0)
+    var_s = torch.clamp(sc.fma32(n, sss, -(ss * ss)), min=0.0)
+    den = sc.sqrt32(var_f * var_s)
     # scipy.pearsonr of a constant input is nan: it fails every comparison
-    cost = torch.where(
-        (var_f > 0) & (var_s > 0),
-        num / torch.sqrt(var_f.double() * var_s.double()),
-        torch.full_like(num, float("nan")),
-    )
+    cost = torch.where(den > 0, num / den, torch.full_like(num, float("nan")))
 
     # CP's descent, per site and pair, on the host over the evaluated steps
     cost_h, n_h = cost.cpu().numpy(), n.cpu().numpy()
     reg_h, mx_h = reg.cpu().numpy(), mx.cpu().numpy()
     f32 = np.float32
-    step32 = f32(i_step)
     thr_k = np.zeros((b, n_pairs), np.float32)
     prev_k = np.zeros((b, n_pairs), np.float32)
     for s in range(b):
         for p in range(n_pairs):
             sa, sb = reg_h[s, p]
             fa_max, fb_max = mx_h[s, p]
-            k0 = np.floor(f32(max(fa_max, fb_max)) / step32) + f32(1.0)
+            with np.errstate(over="ignore"):  # an empty mask: -inf, the loops never run
+                k0 = np.floor(f32(max(fa_max, fb_max)) / step32) + f32(1.0)
             k = k0
-            while k * step32 > fa_max and sa * (k * step32) + sb > fb_max:
+            while k * step32 > fa_max and _fma32_host(sa, k * step32, sb) > fb_max:
                 k = k - f32(1.0)
             t = prev = k0
             while k > 1.0:
                 ki = int(k)
                 c, nb = cost_h[s, p, ki], n_h[s, p, ki]
                 prev, t = t, k
+                # the reference's f32 comparisons (0.45 rounded to f32)
                 if not fast or k < 10.0:
                     step = 1.0
-                elif c > 0.45:
+                elif c > f32(0.45):
                     step = 10.0
-                elif c > 0.35:
+                elif c > f32(0.35):
                     step = 5.0
-                elif c > 0.25:
+                elif c > f32(0.25):
                     step = 2.0
                 else:
                     step = 1.0
@@ -241,8 +272,8 @@ def costes_thresholds(
                 if c <= 0 or nb < 2.0:
                     break
             thr_k[s, p], prev_k[s, p] = t, prev
-    thr_f = torch.as_tensor(thr_k, device=dev) * i_step
-    thr_s = reg[..., 0] * thr_f + reg[..., 1]
+    thr_f = torch.as_tensor(thr_k, device=dev) * torch.tensor(step32, device=dev)
+    thr_s = sc.fma32(reg[..., 0], thr_f, reg[..., 1])
     if return_bracket:
         return thr_f, thr_s, (reg, torch.as_tensor(thr_k, device=dev),
                               torch.as_tensor(prev_k, device=dev))

@@ -152,7 +152,7 @@ def fused_object_features(
     g0 = mxu_take_t(torch.cat([cy[..., None], cx[..., None], vmax], dim=-1), seg, max_cells)
     dy = yf - g0[:, 0]
     dx = xf - g0[:, 1]
-    dist = torch.sqrt(dy * dy + dx * dx)
+    dist = sc.sqrt32(sc.fma32(dy, dy, dx * dx))  # the reference's contraction
     # tolerant max-pixel test, as the reference (its gather was ~1 ulp off;
     # this one is exact, and the tolerance is far below one grey level)
     g0v = g0[:, 2:].transpose(1, 2)

@@ -778,6 +778,35 @@ def _lanes_a(y, x, inside, bnd, pw, vr, with_edge: bool) -> torch.Tensor:
     return torch.cat(cols, dim=1)
 
 
+def fma32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """a * b + c rounded once, as one f32 fused multiply-add (fmaf; XLA's
+    CPU backend contracts the reference's ``a * b + c`` into one): the
+    product of two f32 values is exact in f64, and the f64 sum rounded to
+    f32 differs from one fused rounding only where it lands on an f32
+    rounding midpoint. f64 inputs are summed in f64."""
+    if a.dtype == torch.float64:
+        return a * b + c
+    return (a.double() * b.double() + c.double()).float()
+
+
+def sqrt32(x: torch.Tensor) -> torch.Tensor:
+    """The correctly rounded square root of f32 ``x`` (sqrtf; IEEE's and
+    XLA's): torch's CPU kernel rounds about one value in 150 the other
+    way. A square root taken in f64 and rounded to f32 is the correctly
+    rounded f32 one."""
+    return torch.sqrt(x.double()).to(x.dtype) if x.dtype == torch.float32 else torch.sqrt(x)
+
+
+def rho_powers(rho: torch.Tensor) -> list:
+    """rho**0 .. rho**9 as the reference's ``rho**k`` rounds them (JAX's
+    integer_pow: square-and-multiply, x**7 = (x * x**2) * x**4)."""
+    x2 = rho * rho
+    x4 = x2 * x2
+    x8 = x4 * x4
+    return [torch.ones_like(rho), rho, x2, rho * x2, x4, rho * x4, x2 * x4, (rho * x2) * x4,
+            x8, rho * x8]
+
+
 def _lanes_c(y, x, inside, bnd, vr, g, zcoef, with_moments, with_zernike, with_edge,
              magnitude=False):
     """Pass C lanes of P pixels given their gathered table rows g (P, K) ->
@@ -807,13 +836,15 @@ def _lanes_c(y, x, inside, bnd, vr, g, zcoef, with_moments, with_zernike, with_e
         cols += [ybp[p] * xbp[q] for p, q in orders]
     cols = [torch.stack(cols, dim=1)]
     if with_zernike:
-        dist = torch.sqrt(dy * dy + dx * dx)
+        dist = sqrt32(fma32(dy, dy, dx * dx))
         inv_rmax = 1.0 / torch.clamp(g[:, o_rmax], min=1e-6)
         rho = torch.clamp(dist * inv_rmax, max=1.0)
-        rp = [torch.ones_like(rho)]
-        for _ in range(9):
-            rp.append(rp[-1] * rho)
-        radials = torch.stack(rp, dim=1) @ (zcoef.abs() if magnitude else zcoef).T  # (P, 30)
+        rp = rho_powers(rho)
+        coef = zcoef.abs() if magnitude else zcoef
+        # the reference's f32 dot: one fused multiply-add a power, ascending
+        radials = torch.zeros((rho.shape[0], coef.shape[0]), dtype=rho.dtype, device=rho.device)
+        for k in range(10):
+            radials = fma32(rp[k][:, None], coef[:, k][None, :], radials)
         inv_d = torch.where(dist > 0.0, 1.0 / torch.clamp(dist, min=1e-30), torch.zeros_like(dist))
         ct, st = dx * inv_d, dy * inv_d
         cms, sms = [torch.ones_like(ct)], [torch.zeros_like(ct)]

@@ -23,13 +23,18 @@ Semantics reproduced op by op:
 * drop_outliers (outlier_cutoff=500): drop features with any
   |value| > cutoff.
 
-The O(F^2 N) correlation matrix is the hot spot and runs as masked f64
-matmuls on the caller's device (the reference's are f32): the selection's
-threshold and ranking are discrete, and in f32 the summation orders of
-the card and the CPU flip a pair near the threshold often enough that the
-two devices kept different columns. The rank sums are rounded to 1e-9
-before the stable sort, so that identical columns tie on every device and
-keep their column order. The greedy pair logic is tiny host work.
+The O(F^2 N) correlation matrix is the hot spot and runs on the caller's
+device in the reference's f32 arithmetic, operation for operation: each
+of its masked matmuls sums the N rows in order, one fused multiply-add a
+row, as XLA's CPU dot does. The selection's threshold and ranking are
+discrete, so every rounding counts: identical columns (a channel's copy, a
+measurement in two object tables) have equal correlation rows but for the
+order of the row sums, and which member the reference keeps is decided by
+that rounding alone; f32 sums of squares of MAD-normalized columns with a
+tiny MAD overflow there, and those correlations count as the reference's
+do. With the same arithmetic the card and the CPU compute the same bits,
+and the rank sums, the sort and the greedy pair logic run on the host in
+numpy's f32, as the reference's do.
 """
 
 from __future__ import annotations
@@ -39,6 +44,7 @@ import pandas as pd
 import torch
 
 from saguaro_tpu_torch.device import resolve_device
+from saguaro_tpu_torch.kernels.segment_cuda import sqrt32
 from saguaro_tpu_torch.ops.normalize import split_feature_columns
 
 __all__ = ["feature_select", "nan_aware_correlation", "DEFAULT_OPERATIONS"]
@@ -51,32 +57,71 @@ DEFAULT_OPERATIONS = [
 ]
 
 
+# f64 elements of a column block's running sums (``_gram_rows``): 4 MiB on
+# the host, so that a row's update stays in cache; the card takes all
+_HOST_BLOCK = 1 << 19
+
+
+def _gram_rows(x: torch.Tensor) -> torch.Tensor:
+    """x.T @ x for (N, F) f32 x -> (F, F) f32, each product summed over the
+    N rows in row order, one fused multiply-add a row: XLA's CPU dot, bit
+    for bit. The product of two f32 values is exact in f64, and the f64
+    sum rounded to f32 differs from one fused rounding only where it lands
+    on an f32 rounding midpoint (``segment_cuda.fma32``)."""
+    n, f = x.shape
+    x64 = x.double()
+    acc = torch.zeros((f, f), dtype=torch.float32, device=x.device)
+    width = f if x.is_cuda else max(1, min(f, _HOST_BLOCK // max(f, 1)))
+    for j0 in range(0, f, width):
+        blk = acc[:, j0 : j0 + width]
+        tmp = torch.empty(blk.shape, dtype=torch.float64, device=x.device)
+        for k in range(n):
+            torch.outer(x64[k], x64[k, j0 : j0 + width], out=tmp)
+            tmp += blk
+            blk.copy_(tmp)
+    return acc
+
+
+def _masked_sums(v: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+    """v.T @ m for (N, F) f32 v and 0/1 mask m, summed over the rows in row
+    order as ``_gram_rows`` sums (a product with 0 or 1 is exact, so each
+    step is one f32 add). Columns with the same mask share their sums: they
+    are computed once a mask pattern."""
+    patterns, which = torch.unique(m.T, dim=0, return_inverse=True)
+    acc = torch.zeros((v.shape[1], patterns.shape[0]), dtype=torch.float32, device=v.device)
+    for k in range(v.shape[0]):
+        acc.addcmul_(v[k, :, None], patterns[None, :, k])
+    return acc[:, which]
+
+
 def _masked_corr(x: torch.Tensor) -> torch.Tensor:
-    """Pairwise-complete Pearson correlation of columns of x (N, F).
+    """Pairwise-complete Pearson correlation of columns of x (N, F), f32.
 
     For every column pair (i, j) the statistics are computed over rows where
     both are non-NaN, matching pandas ``DataFrame.corr``. All terms are
-    (F, F) f64 matmuls of the masked data.
+    (F, F) masked matmuls, in the reference's order and rounding
+    (``_gram_rows``, ``_masked_sums``); the row counts are exact in any
+    order.
     """
     nan = torch.isnan(x)
-    m = (~nan).to(torch.float64)
-    x0 = torch.where(nan, 0.0, x).to(torch.float64)
+    m = (~nan).to(torch.float32)
+    x0 = torch.where(nan, 0.0, x).to(torch.float32)
     n = m.T @ m
-    sx = x0.T @ m          # sum of x_i over joint support (i rows, j cols)
-    sxy = x0.T @ x0
-    sxx = (x0 * x0).T @ m
+    sx = _masked_sums(x0, m)          # sum of x_i over joint support (i rows, j cols)
+    sxx = _masked_sums(x0 * x0, m)
+    sxy = _gram_rows(x0)
     # covariance and variances over the joint support
     cov = sxy - sx * sx.T / n
     var_i = sxx - sx * sx / n
     var_j = sxx.T - sx.T * sx.T / n
-    denom = torch.sqrt(var_i * var_j)
+    denom = sqrt32(var_i * var_j)
     corr = torch.where(denom > 0, cov / denom, torch.nan)
     return torch.where(n > 1, corr, torch.nan)
 
 
 def nan_aware_correlation(values: np.ndarray, device: str | torch.device | None = None) -> np.ndarray:
-    """Pairwise-complete correlation of the columns of (N, F) ``values`` (f32)
-    in f64 on ``device`` (CUDA unless named), returned on the host."""
+    """Pairwise-complete f32 correlation of the columns of (N, F) ``values``
+    on ``device`` (CUDA unless named), returned on the host."""
     dev = resolve_device(device)
     x = torch.tensor(np.asarray(values, dtype=np.float32), device=dev)
     return _masked_corr(x).cpu().numpy()
@@ -114,11 +159,10 @@ def _correlation_threshold(
     np.fill_diagonal(corr, np.nan)
     abs_corr = np.abs(corr)
     # pycytominer: rank features by total |corr| ascending; for each
-    # over-threshold pair drop the later-ranked (larger-sum) member.
-    # Identical columns (a channel's copy, a measurement in two object
-    # tables) have equal sums up to rounding, which differs by device;
-    # rounded, they tie exactly and the stable sort keeps column order.
-    cor_sum = np.round(np.nansum(abs_corr, axis=1), 9)
+    # over-threshold pair drop the later-ranked (larger-sum) member. The
+    # f32 row sums are numpy's, as the reference's: they break the ties of
+    # identical columns by their rounding.
+    cor_sum = np.nansum(abs_corr, axis=1)
     order = np.argsort(cor_sum, kind="stable")
     rank = np.empty(len(features), dtype=int)
     rank[order] = np.arange(len(features))

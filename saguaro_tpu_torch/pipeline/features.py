@@ -599,12 +599,14 @@ def _tables_from_result(
 ) -> dict[str, pd.DataFrame]:
     metadata = metadata or {}
     tables: dict[str, pd.DataFrame] = {}
+    # features in sorted name order, as the reference writes them (its
+    # result tree comes back through JAX, which sorts dict keys)
     for obj_name, feats in res["objects"].items():
         areas = feats["AreaShape_Area"]
         # slot 0 is never a real object: labels >= max_cells fold into it
         present = np.where(areas > 0)[0]
         present = present[present > 0]
-        df = pd.DataFrame({k: v[present] for k, v in feats.items()})
+        df = pd.DataFrame({k: feats[k][present] for k in sorted(feats)})
         df.insert(0, "ObjectNumber", present.astype(np.int64))
         df.insert(0, "ImageNumber", image_number)
         df["Number_Object_Number"] = present.astype(np.int64)
@@ -620,7 +622,7 @@ def _tables_from_result(
         tables[obj_name] = df
 
     img_row: dict = {"ImageNumber": image_number}
-    for k, v in res["image"].items():
+    for k, v in sorted(res["image"].items()):
         if k.startswith("Granularity_"):
             ch = k.split("_", 1)[1]
             for i, g in enumerate(np.asarray(v), start=1):

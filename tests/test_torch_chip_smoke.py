@@ -108,6 +108,8 @@ def test_profile_phase_rehearsal_on_cpu(smoke, grid_root):
         assert set(got[part]["card_s"]) == {"normalize_cp", "feature_select_cosine", "pycyto_pertime",
                                             "concat_cp", "induction_hit"}
         assert got[part]["csvs"] == 2 + 4 + 3 * 2 + 4
+        assert got[part]["kept"] >= 0 and got[part]["ties"] >= 0
+    assert got["plate"]["kept"] > 0
 
 
 def test_tiff_phase_rehearsal_on_cpu(smoke):

@@ -5,9 +5,9 @@ on the CPU) against the reference, per site of a batch.
   counts and cumsums);
 * Costes thresholds: the first channel's threshold (the stopping grid
   step) exact: the Pearson statistic of each step comes from exact joint
-  counts and its sign decides the stop (the port evaluates it exactly in
-  integer moments, the reference in f32 sums; on these fixtures its
-  rounding flips no sign); the second channel's is the
+  counts and its sign decides the stop (both packages evaluate it in the
+  same f32 sums, in the same order, so that a sign their rounding flips
+  flips alike); the second channel's is the
   regression line at that step, whose coefficients are f32 sums over the
   pixels in another order, 1e-5 relative;
 * the pass E sums: 2**-15 of the per-label sum of |lane| (the reference
@@ -222,3 +222,57 @@ def test_costes_fine_scale_refines_each_set(sites):
                     tol = feature_tolerance(stat, r, None, *img.shape[1:3])
                     assert np.all(np.abs(g - r) <= tol), (nm, (a, c), stat, r, g)
     assert n_held >= 10 and n_equal >= 10
+
+
+def test_costes_of_an_empty_or_flat_mask_matches_reference():
+    """A mask with no pixels (a site's empty Cytoplasm) or one whose
+    channels do not vary has a NaN regression line: its second threshold
+    reads as grid code 0, as the reference's XLA converts NaN, where the
+    port once gathered at index -2**63 and failed the whole batch."""
+    rng = np.random.default_rng(5)
+    vals = rng.random((2, 300, 2)).astype(np.float32)
+    vals[1] = 0.25
+    inside = np.ones((2, 300), bool)
+    inside[0] = False
+    tf, ts = port.costes_thresholds(torch.from_numpy(vals), torch.from_numpy(inside), ((0, 1),))
+    for s in range(2):
+        rf, rs = ref.costes_thresholds(jnp.asarray(vals[s]), jnp.asarray(inside[s]), ((0, 1),))
+        np.testing.assert_array_equal(tf[s].numpy(), np.asarray(rf))
+        np.testing.assert_array_equal(ts[s].numpy(), np.asarray(rs))
+    assert np.isneginf(tf[0, 0].item()) and np.isnan(ts[1, 0].item())
+
+
+def test_costes_stops_where_the_reference_rounds(tmp_path):
+    """The end-to-end screen's site (plate 2 at 6 h, third well): at the
+    first grid step the exact Pearson of the pixels below is +0.0047, and
+    the reference's f32 suffix sums round it to <= 0, so its descent stops
+    there. The port evaluates the same f32 sums in the same order (XLA's
+    blocked scan, its fused multiply-adds) and stops at the same step."""
+    import zlib
+
+    from saguaro_tpu_torch.io import tiff
+
+    from .fixtures import make_fake_plate
+
+    load_data, paths = make_fake_plate(str(tmp_path), n_wells=3, image_size=96,
+                                       channels=("DNA", "GFP"), timepoint="6", plate="2",
+                                       seed=zlib.crc32(b"2_6"))
+    row = load_data.iloc[2]
+    img = np.stack([np.asarray(tiff.imread(f"{paths['images']}/{row[f'FileName_{c}']}"), np.float32)
+                    for c in ("DNA", "GFP")], -1).reshape(-1, 2)
+    inside = paths["gt_masks"][(row["Metadata_Well"], row["Metadata_Site"])].reshape(-1) > 0
+    vals = img / img[inside].max()
+    _, _, (_, thr_k, prev_k) = port.costes_thresholds(
+        torch.from_numpy(vals[None]), torch.from_numpy(inside[None]), ((0, 1),),
+        return_bracket=True)
+    _, _, (regs, r_thr, r_prev) = ref.costes_thresholds(
+        jnp.asarray(vals), jnp.asarray(inside), ((0, 1),), return_bracket=True)
+    assert float(r_thr[0]) == float(r_prev[0]) == 255.0
+    np.testing.assert_array_equal(thr_k[0].numpy(), np.asarray(r_thr))
+    np.testing.assert_array_equal(prev_k[0].numpy(), np.asarray(r_prev))
+    # the exact statistic at that step is positive: only the rounding stops it
+    codes = np.clip(np.floor(vals[inside] * 255), 0, 255)
+    slope, icept = (float(v) for v in np.asarray(regs)[0])
+    jb = np.ceil((slope * 1.0 + icept) * 255)
+    below = ~((codes[:, 0] >= 255) & (codes[:, 1] >= jb))
+    assert 0.0 < np.corrcoef(codes[below, 0], codes[below, 1])[0, 1] < 0.01

@@ -300,3 +300,19 @@ def test_distinct_errors_do_not_trip_systemic(grid, tmp_path):
     kw["segmenter"] = flaky(False)
     with pytest.raises(SystemicFailureError, match="flaky read"):
         run_batch_processing(**kw, feature_cfg=FeatureConfig(**KW), device="cpu", mesh=None)
+
+
+def test_tables_keep_the_reference_column_order(plate, tmp_path):
+    """Each table's columns in the reference's order (feature names sorted,
+    as its result tree comes back through JAX), so that the profile stages
+    write the reference's column order too."""
+    want = _run(ref_job, RefFeatureConfig(**KW), plate, str(tmp_path / "ref"))
+    got = _run(run_feature_extraction_job, FeatureConfig(**KW), plate, str(tmp_path / "port"),
+               device="cpu")
+    for name, path in want.items():
+        ref_cols = list(pd.read_csv(path, nrows=0).columns)
+        assert list(pd.read_csv(got[name], nrows=0).columns) == ref_cols, name
+        features = [c for c in ref_cols if c not in ("ImageNumber", "ObjectNumber")
+                    and not c.startswith(("Metadata_", "Parent_", "Number_"))]
+        if name != "Image":  # the Image table expands each granularity spectrum in place
+            assert features == sorted(features) and len(features) > 10, name

@@ -108,3 +108,41 @@ def test_radial_family_matches_reference(sites, binning, n_rings):
                     tol = feature_tolerance(f"RadialDistribution_{k}", col, None, h, w)
                     bad = ~(np.abs(got[k][s, :, r, c].numpy() - col) <= tol)
                     assert not bad.any(), (k, r, c, np.nonzero(bad)[0], col[bad])
+
+
+def _sliver_site(seed: int = 0, size: int = 96):
+    """One site of objects of 3 or 4 scattered pixels (a cytoplasm's
+    slivers between touching cells: the first three are the end-to-end
+    screen's, plate 2 at 6 h, first site), whose Zernike radials the
+    reference evaluates where their f32 terms cancel most, and one disk."""
+    rng = np.random.default_rng(seed)
+    lab = np.zeros((size, size), np.int32)
+    objects = [[(46, 74), (46, 75), (51, 84), (52, 84)], [(56, 74), (57, 74), (64, 59)],
+               [(18, 45), (19, 36), (24, 49)]]
+    for k in range(8):
+        y, x = 4 + 11 * k, int(rng.integers(2, 30))
+        objects.append([(y + int(rng.integers(0, 8)), x + int(rng.integers(0, 14)))
+                        for _ in range(3 + k % 2)])
+    for k, pixels in enumerate(objects, start=1):
+        for y, x in pixels:
+            lab[y, x] = k
+    yy, xx = np.mgrid[:size, :size]
+    lab[(yy - 80) ** 2 + (xx - 30) ** 2 <= 16] = len(objects) + 1
+    img = rng.integers(100, 3000, (size, size, 2)).astype(np.float32)
+    return img[None], lab[None]
+
+
+def test_zernike_of_small_objects_matches_reference():
+    """A 4-pixel object's R_9^1 is a sum of terms up to 280 rho^7 that
+    cancel to about 1: the port raises rho to each power and sums the
+    radial's terms as the reference rounds them (JAX's integer powers, one
+    fused multiply-add a power), else the two part by 1.9e-5."""
+    img, lab = _sliver_site()
+    got = fused_object_features(torch.from_numpy(img), torch.from_numpy(lab), MC,
+                                with_moments=False, with_zernike=True, with_edge=False,
+                                with_radial=False)["zernike"][0].numpy()
+    want = np.asarray(ref_fused(img[0], lab[0], MC, with_moments=False, with_zernike=True,
+                                with_edge=False, with_radial=False)["zernike"])
+    assert (want[1:12].max(axis=1) > 0.5).all()
+    tol = feature_tolerance("AreaShape_Zernike_9_1", want, None, *img.shape[1:3])
+    np.testing.assert_array_less(np.abs(got - want), tol + 1e-12)

@@ -96,6 +96,55 @@ def test_nan_aware_correlation_matches_reference():
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
 
 
+def _tied_and_huge(seed: int) -> pd.DataFrame:
+    """Robust z-scores as a screen's normalize stage writes them: columns
+    equal value for value (a channel's copy of a measurement, a shape
+    measured in two object tables), columns whose DMSO MAD was a rounding,
+    of 1e17 and beyond (their f32 squares sum past f32's range in the
+    reference), and NaNs."""
+    rng = np.random.default_rng(seed)
+    n = 32
+    base = rng.normal(size=(n, 3))
+    df = pd.DataFrame(base @ rng.normal(size=(3, 10)) + 0.3 * rng.normal(size=(n, 10)),
+                      columns=[f"f{i}" for i in range(10)])
+    df["copy_f2"] = df["f2"]
+    df["copy_f7"] = df["f7"]
+    df.insert(3, "again_f7", df["f7"])
+    df["huge"] = rng.normal(size=n) * 3e18
+    df["huge2"] = df["huge"] * 0.5 + rng.normal(size=n) * 1e18
+    df.loc[rng.random(n) < 0.1, "f5"] = np.nan
+    df.insert(0, "Metadata_Well", [f"W{i:03}" for i in range(n)])
+    return df
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_correlation_is_the_references_f32(seed):
+    """The masked correlations are the reference's f32 bits: its matmuls sum
+    each product over the rows in order, one fused multiply-add a row, and
+    overflow where the reference's do (a correlation over a sum of squares
+    past f32's range reads 0 or NaN)."""
+    df = _tied_and_huge(seed)
+    x = df.drop(columns="Metadata_Well").to_numpy(np.float32)
+    want = np.asarray(ref_select.nan_aware_correlation(x))
+    got = port_select.nan_aware_correlation(x, device=CPU)
+    # the huge pair's sums of squares overflow: correlated, yet 0 in f32
+    assert df["huge"].corr(df["huge2"]) > 0.5 and (np.nan_to_num(want[-1, :-1]) == 0).all()
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_feature_select_keeps_the_references_member_of_identical_columns(seed):
+    """Of columns equal value for value the reference keeps the member its
+    f32 row sums of |corr| favour, and drops correlations it overflowed;
+    the port keeps the same columns, in the same order."""
+    df = _tied_and_huge(seed)
+    kw = {"na_cutoff": 0.5, "corr_threshold": 0.95, "operation": ["correlation_threshold"]}
+    want = ref.feature_select(df, **kw)
+    got = port.feature_select(df, device=CPU, **kw)
+    assert len(want.columns) < len(df.columns)
+    assert list(got.columns) == list(want.columns)
+
+
 def _selection_frame(seed: int) -> pd.DataFrame:
     """Profiles whose features each trip one selection op: a constant, a
     near-constant, a mostly-NaN, a correlated pair and an outlier."""
@@ -129,10 +178,11 @@ def test_feature_select_matches_reference(seed, kw):
 @pytest.mark.parametrize("rounding", [-1e-13, 0.0, 1e-13])
 def test_feature_select_keeps_the_first_of_identical_columns(monkeypatch, copy_at, rounding):
     """Identical columns (a channel's copy of a measurement) have equal
-    correlation sums but for rounding, which the card and the CPU round
-    apart (here: ``rounding`` added to one copy's correlations); the
-    selection ranks them as equal and keeps the earlier one, wherever the
-    copy stands."""
+    correlation sums but for rounding. The port's correlations are the
+    reference's f32 bits on every device, so that an offset far below
+    their resolution (``rounding``, added to one copy's correlations)
+    changes nothing: the port keeps the member the reference keeps, here
+    the earlier one, wherever the copy stands."""
     rng = np.random.default_rng(7)
     n = 40
     base = rng.normal(size=(n, 1))
@@ -149,6 +199,7 @@ def test_feature_select_keeps_the_first_of_identical_columns(monkeypatch, copy_a
 
     monkeypatch.setattr(port_select, "nan_aware_correlation", rounded_apart)
     got = port.feature_select(df, device=CPU, corr_threshold=0.99)
+    assert list(got.columns) == list(ref.feature_select(df, corr_threshold=0.99).columns)
     first, second = sorted(["copy", "f3"], key=list(df.columns).index)
     assert first in got.columns and second not in got.columns
     assert [c for c in df.columns if c not in ("copy", "f3")] == [c for c in got.columns if c != first]
