@@ -17,7 +17,7 @@ need, whose mean it logs. Then it drives the paths end to end through the user-f
 entry points. Feature extraction: the full-width CPnet segmentation
 engine on 8 synthetic uint16 sites, mask recovery on ground-truth flows
 (untrained weights find no cells), ``measure_site_batch`` at the
-reference's default FeatureConfig (every family on). Job grid:
+reference's default FeatureConfig (every family on; the CP ring geometry by the min-plus scan centre race, as the reference's). Job grid:
 ``run_batch_processing`` over 1 plate x 2 timepoints of 16 sites of
 1080 x 1080 x 5 cone-shaped nuclei written as LZW TIFFs, with the
 full-width engine (``gradient_cpnet``'s CPnet): two batches a job, the
@@ -57,8 +57,18 @@ fine thresholds inside the walk's window below the coarse bracket's top,
 card against CPU on 128² corners (within 2 fine steps; where equal, C1/C2
 within SUM_RTOL), and K3 at the fine shape held and timed into the kernel
 line. Oracles: ``moments_features`` and the three ``multichannel_*``
-functions on the card against the fused measurement's columns. The legacy
-``granularity_spectrum`` of a 1080² site, card against CPU. Mesh: a 2-way
+functions on the card against the fused measurement's columns. Family
+API: the reference's per-family functions (``segment_stats``,
+``intensity_features``, ``shape_features``, ``correlation_features``,
+``zernike_features``, ``object_glcm`` and its scatter form, the one-channel
+quantile, Edge and radial forms, ``dense_rank_images``,
+``otsu_threshold``, ``radial_power_spectrum``, ``segment_tiles``) on the 8
+sites, each run alone with its K1, K2, K3 and K6 launches counted; held
+against the fused measurement's columns (and the measurement's texture
+and quantiles), card against CPU on 128² corners with the min-plus centre
+race's ring/wedge codes exactly, and each kernel at each function's first
+inputs held and timed into the kernel line as ``<kernel>[<function>]``.
+The legacy ``granularity_spectrum`` of a 1080² site, card against CPU. Mesh: a 2-way
 mesh of the one card (``make_mesh(devices=[cuda:0, cuda:0])``) shards
 ``segment_batch`` of 8 and 7 cone sites (labels equal to unsharded), the
 measurement of the 8 sites (against the main path's tables; K1-K6
@@ -444,17 +454,7 @@ def check_kernels(images, labels, dev):
     table[:, 300:, 2:] = -np.inf  # absent labels: the segment-max identity
     table[:, 0, 2:] = -3.4e38
     tab = torch.as_tensor(table, device=dev)
-    got = sc.seg_take_t(tab, seg, MAX_CELLS)
-    want = sc.take_t_plain(tab, seg, MAX_CELLS)
-    torch.cuda.synchronize()
-    if not torch.equal(got, want):
-        raise AssertionError("K2 gather differs from the plain form")
-    site_idx = torch.arange(b, device=dev)[:, None]
-    k = 2 + n_ch
-    entry("seg_take_t", "saguaro_tpu_torch/csrc/take.cu", f"{PALLAS}:383", 0.0,
-          lambda: sc.seg_take_t(tab, seg, MAX_CELLS), lambda: sc.take_t_plain(tab, seg, MAX_CELLS),
-          n_bytes=4.0 * b * (MAX_CELLS * k + n + k * n), n_ops=0.0,
-          library=lambda: tab[site_idx, seg])
+    hold_k2_site("seg_take_t", tab, seg, MAX_CELLS, dev, entry)
 
     # K3 at both of its call sites
     check_sums_shapes(k3_rec, dev, entry)
@@ -611,15 +611,8 @@ def check_family_kernels(img, lab, seg, entry, entries):
     torch.cuda.synchronize()
     if not torch.equal(bare_out, ranks_all):
         raise AssertionError("K6's bare launch differs from its wrapper")
-    flat_t = tables.view(b, n_ch, 65536, k_sets)
-    p_idx = hi.long() * 256 + lo.long()
-    chan = torch.arange(n_ch, device=dev)[None, None, :]
-    # per item: its two codes read and its K ranks written; the tables read once
-    entry("seg_pick2", "saguaro_tpu_torch/csrc/pick2.cu", f"{PALLAS}:824", 0.0,
-          lambda: sc.seg_pick2(hi, lo, tables), lambda: sc.pick2_plain(hi, lo, tables),
-          n_bytes=b * n * n_ch * (8.0 + 4.0 * k_sets) + 4.0 * tables.numel(), n_ops=0.0,
-          library=lambda: flat_t[site[:, :, None], chan, p_idx], bare=call)
-    del p_idx, flat_t, hi, lo, bare_out, call
+    hold_k6_site("seg_pick2", hi, lo, tables, dev, entry, bare=call)
+    del hi, lo, bare_out, call
 
     # K4 pass E over the nuclei: their ranks from K6 (the Nuclei set's
     # plane, contiguous: no copy), Manders thresholds at 15 % of each
@@ -753,15 +746,9 @@ class K1Sites:
 def check_counts_shapes(rec, dev, entry):
     """K1 at every shape the main path gives it: each call site's first
     inputs kept from one ``measure_site_batch`` at the default
-    FeatureConfig (``rec``, a K1Sites), each site's call held exactly
-    against the plain form and timed beside one ``torch.bincount`` over
-    every plane's keys. The bound counts
-    what this run's inputs need: every label, the codes of the pixels whose
-    label lies in [0, max_cells) (``onehot_counts`` gives the pixels outside
-    its caller's ``label_valid`` label -1), the table written once, and one
-    operation a valid key. Logs each shape's plan, the kernel's resources
-    under it, and the time of ``onehot_counts``' label mask (one
-    ``torch.where`` over the labels), which the K1 rows leave out."""
+    FeatureConfig (``rec``, a K1Sites), each held and timed by
+    ``hold_k1_site``. Logs each shape's plan and the kernel's resources
+    under it."""
     import torch
 
     from saguaro_tpu_torch.kernels import segment_cuda as sc
@@ -775,32 +762,50 @@ def check_counts_shapes(rec, dev, entry):
         plan = sc.counts_plan(mc, sizes, b, n, torch.cuda.get_device_properties(dev).multi_processor_count)
         log(f"{name} {key[:3]}: {rec.calls[key]} launches a batch, max_cells {mc}, {n_q} planes "
             f"{sorted(set(sizes))}; plan {plan}; {json.dumps(sc.counts_kernel_info(plan))}")
-        got = sc.seg_counts(lab, codes, sizes, mc)
-        torch.cuda.synchronize()
-        if not torch.equal(got, sc.counts_plain(lab, codes, sizes, mc)):
-            raise AssertionError(f"K1 {name} differs from the plain form")
-        del got
-        total = sum(sizes)
-        size = b * mc * total
-        site = torch.arange(b, device=dev)[:, None, None]
-        offs = torch.tensor(np.cumsum((0,) + sizes[:-1]), device=dev)[None, :, None]
-        lab_l = lab.long()[:, None, :]
-        ok = (codes >= 0) & (lab_l >= 0) & (lab_l < mc)
-        keys = torch.where(ok, site * (mc * total) + lab_l * total + offs + codes, size).reshape(-1)
-        n_keys = float(ok.sum())
-        n_labelled = float(((lab >= 0) & (lab < mc)).sum())
-        del ok, lab_l
-        keep = lab >= 0
-        mask_ms = time_ms(lambda: torch.where(keep, lab, -1), 10)
-        log(f"{name}: {n_labelled / (b * n):.4f} of the pixels labelled, {n_keys:.0f} valid keys; "
-            f"onehot_counts' label mask {mask_ms:.4f} ms")
-        entry(name, "saguaro_tpu_torch/csrc/counts.cu", f"{PALLAS}:252", 0.0,
-              lambda: sc.seg_counts(lab, codes, sizes, mc),
-              lambda: sc.counts_plain(lab, codes, sizes, mc),
-              n_bytes=4.0 * b * n + 2.0 * n_labelled * n_q + 4.0 * size, n_ops=n_keys,
-              library=lambda: torch.bincount(keys, minlength=size + 1), counter="seg_counts",
-              site=key)
-        del keys, keep
+        hold_k1_site(name, lab, codes, sizes, mc, dev, entry, site=key)
+
+
+def hold_k1_site(name, lab, codes, sizes, mc, dev, entry, site=None):
+    """K1 on one call site's inputs, held exactly against the plain form and
+    timed beside one ``torch.bincount`` over every plane's keys, as kernel
+    entry ``name`` (with ``site``, counted by K1Sites' call site). The bound
+    counts what these inputs need: every label, the codes of the pixels
+    whose label lies in [0, max_cells) (``onehot_counts`` gives the pixels
+    outside its caller's ``label_valid`` label -1), the table written once,
+    and one operation a valid key. Logs the time of ``onehot_counts``'
+    label mask (one ``torch.where`` over the labels), which the K1 rows
+    leave out."""
+    import torch
+
+    from saguaro_tpu_torch.kernels import segment_cuda as sc
+
+    b, n_q, n = codes.shape
+    got = sc.seg_counts(lab, codes, sizes, mc)
+    torch.cuda.synchronize()
+    if not torch.equal(got, sc.counts_plain(lab, codes, sizes, mc)):
+        raise AssertionError(f"K1 {name} differs from the plain form")
+    del got
+    total = sum(sizes)
+    size = b * mc * total
+    site_i = torch.arange(b, device=dev)[:, None, None]
+    offs = torch.tensor(np.cumsum((0,) + tuple(sizes)[:-1]), device=dev)[None, :, None]
+    lab_l = lab.long()[:, None, :]
+    ok = (codes >= 0) & (lab_l >= 0) & (lab_l < mc)
+    keys = torch.where(ok, site_i * (mc * total) + lab_l * total + offs + codes, size).reshape(-1)
+    n_keys = float(ok.sum())
+    n_labelled = float(((lab >= 0) & (lab < mc)).sum())
+    del ok, lab_l
+    keep = lab >= 0
+    mask_ms = time_ms(lambda: torch.where(keep, lab, -1), 10)
+    log(f"{name}: {n_labelled / (b * n):.4f} of the pixels labelled, {n_keys:.0f} valid keys; "
+        f"onehot_counts' label mask {mask_ms:.4f} ms")
+    entry(name, "saguaro_tpu_torch/csrc/counts.cu", f"{PALLAS}:252", 0.0,
+          lambda: sc.seg_counts(lab, codes, sizes, mc),
+          lambda: sc.counts_plain(lab, codes, sizes, mc),
+          n_bytes=4.0 * b * n + 2.0 * n_labelled * n_q + 4.0 * size, n_ops=n_keys,
+          library=lambda: torch.bincount(keys, minlength=size + 1),
+          counter="seg_counts" if site is not None else None, site=site)
+    del keys, keep
 
 
 # K3's call sites on the main path (the caller of segment_matmul_sums) and
@@ -1414,9 +1419,11 @@ K3_FINE_SITE = "costes_fine_refine"
 # large sums (odd central moments of round cells, MassDisplacement) may
 # instead meet tests/torch_data.feature_tolerance, the CPU tests' bound
 ORACLE_RTOL = 1e-4
-ORACLE_ATOL = {"moments": 1e-4, "intensity": 1e-3, "edge": 1e-3, "radial": 1e-4, "corr": 1e-4}
+ORACLE_ATOL = {"moments": 1e-4, "intensity": 1e-3, "edge": 1e-3, "radial": 1e-4, "corr": 1e-4,
+               "shape": 1e-4, "zernike": 1e-5}
 ORACLE_COLUMN = {"moments": "AreaShape_{}", "intensity": "Intensity_{}", "edge": "Intensity_{}",
-                 "radial": "RadialDistribution_{}", "corr": "Correlation_{}"}
+                 "radial": "RadialDistribution_{}", "corr": "Correlation_{}",
+                 "shape": "AreaShape_{}", "zernike": "AreaShape_Zernike_{}"}
 GRAN_RTOL = 1e-5            # legacy granularity, card vs CPU, of the spectrum's scale
 MESH_LOSS_RTOL = 1e-5       # training with and without the mesh, relative loss
 
@@ -1613,6 +1620,34 @@ def ring_tie_allowance(images, labels, n_rings: int, max_cells: int, tie: float 
     return frac, mean
 
 
+def oracle_tolerance(family, key, want, area, side, h, w):
+    """The tolerance of an oracle's values ``want`` (B, max_cells, ...)
+    against the fused measurement's: ORACLE_ATOL[family] + ORACLE_RTOL *
+    |want|, or ``feature_tolerance`` of its column where that is larger,
+    with each object's area and box side (B, max_cells) for the moment
+    columns' scale."""
+    import pandas as pd
+
+    from tests.torch_data import feature_tolerance
+
+    tol = ORACLE_ATOL[family] + ORACLE_RTOL * np.abs(want)
+    col = ORACLE_COLUMN[family].format(key)
+    for s in range(len(want)):
+        # feature_tolerance reads areas and box sides from a table
+        table = pd.DataFrame({"AreaShape_Area": area[s],
+                              "AreaShape_BoundingBoxMaximum_Y": side[s],
+                              "AreaShape_BoundingBoxMinimum_Y": 0.0,
+                              "AreaShape_BoundingBoxMaximum_X": 0.0,
+                              "AreaShape_BoundingBoxMinimum_X": 0.0})
+        ws = want[s].reshape(len(area[s]), -1)
+        for j in range(ws.shape[1]):
+            scaled = feature_tolerance(col, ws[:, j], table, h, w)
+            t = tol[s].reshape(ws.shape)
+            t[:, j] = np.maximum(t[:, j], scaled)
+            tol[s] = t.reshape(tol[s].shape)
+    return tol
+
+
 def check_oracles(images, labels, dev) -> dict:
     """``moments_features`` and the three ``multichannel_*`` functions on
     the card (sums on K3, at four call sites) against the fused
@@ -1634,7 +1669,6 @@ def check_oracles(images, labels, dev) -> dict:
         multichannel_stats,
         radial_distribution_multichannel,
     )
-    from tests.torch_data import feature_tolerance
 
     img = torch.as_tensor(images.astype(np.float32), device=dev)
     lab = torch.as_tensor(np.ascontiguousarray(labels), device=dev)
@@ -1666,26 +1700,10 @@ def check_oracles(images, labels, dev) -> dict:
         f"and MeanFrac by up to {ties['MeanFrac'].max():.3g}")
 
     def hold(family, key, got, want):
-        import pandas as pd
-
         g = got.double().cpu().numpy()
         w = want.double().cpu().numpy()
-        tol = ORACLE_ATOL[family] + ORACLE_RTOL * np.abs(w)
-        strict = float((np.abs(g - w) / tol).max())
-        col = ORACLE_COLUMN[family].format(key)
-        for s in range(len(w)):
-            # feature_tolerance reads areas and box sides from a table
-            table = pd.DataFrame({"AreaShape_Area": area[s],
-                                  "AreaShape_BoundingBoxMaximum_Y": side[s],
-                                  "AreaShape_BoundingBoxMinimum_Y": 0.0,
-                                  "AreaShape_BoundingBoxMaximum_X": 0.0,
-                                  "AreaShape_BoundingBoxMinimum_X": 0.0})
-            ws = w[s].reshape(len(area[s]), -1)
-            for j in range(ws.shape[1]):
-                scaled = feature_tolerance(col, ws[:, j], table, *images.shape[1:3])
-                t = tol[s].reshape(ws.shape)
-                t[:, j] = np.maximum(t[:, j], scaled)
-                tol[s] = t.reshape(tol[s].shape)
+        strict = float((np.abs(g - w) / (ORACLE_ATOL[family] + ORACLE_RTOL * np.abs(w))).max())
+        tol = oracle_tolerance(family, key, w, area, side, *images.shape[1:3])
         if family == "radial":
             tol = tol + ties[key]
         ratio = float((np.abs(g - w) / tol).max())
@@ -1736,6 +1754,425 @@ def check_granularity(images, dev) -> dict:
     log(f"legacy granularity spectrum, 5 planes of {planes.shape[1]}², 16 radii: card {secs:.3f} s, "
         f"card vs CPU {err:.3g} (scale {scale:.3g})")
     return {"seconds": secs, "max_abs_err": err, "scale": scale}
+
+
+# --------------------------------------------------------------------------
+# The per-family measurement API: the reference's one-family-at-a-time
+# functions on the main path's sites
+
+# the segment_cuda functions FamilyInputs wraps, by kernel: the wrappers on
+# the card (the CPU rehearsals wrap the plain forms)
+FAMILY_WRAPPED = {"seg_counts": "seg_counts", "seg_take_t": "seg_take_t", "seg_sums": "seg_sums",
+                  "seg_pick2": "seg_pick2"}
+# columns the per-family functions and the fused measurement compute alike
+# to the bit (counts, areas, boxes, min / max and their places)
+FAMILY_EXACT = ("Area", "BoundingBox", "MinIntensity", "MaxIntensity")
+RPS_RTOL = 1e-4             # ring sums of the FFT, card vs CPU (cuFFT vs pocketfft), + 1e-6 of max
+TILES_ATOL = 1e-3           # segment_tiles card vs CPU in f32, of the output's largest magnitude
+FAMILY_SUM_RTOL = 2.0**-15  # a plain f32 sum, of the per-label sum of |value| (the CPU tests' rule)
+FAMILY_TILES = 8            # tiles of 224² segment_tiles runs on
+HARALICK_RTOL = 1e-5        # Haralick of equal GLCMs (+ 1e-6): index_add_'s atomics vary its sums' order
+
+
+class FamilyInputs:
+    """Wraps K1's, K2's, K3's and K6's wrappers (FAMILY_WRAPPED) while
+    active: counts each kernel's calls and keeps its first inputs."""
+
+    def __init__(self):
+        from saguaro_tpu_torch.kernels import segment_cuda as sc
+
+        self.sc, self.calls, self.inputs, self.real = sc, {}, {}, {}
+
+    def __enter__(self):
+        for kernel, fname in FAMILY_WRAPPED.items():
+            real = self.real[fname] = getattr(self.sc, fname)
+
+            def counted(*args, _kernel=kernel, _real=real, **kw):
+                self.calls[_kernel] = self.calls.get(_kernel, 0) + 1
+                self.inputs.setdefault(_kernel, args)
+                return _real(*args, **kw)
+
+            setattr(self.sc, fname, counted)
+        return self
+
+    def __exit__(self, *exc):
+        for fname, real in self.real.items():
+            setattr(self.sc, fname, real)
+
+
+def family_calls(img, lab, fused, model, tiles) -> dict:
+    """{API function: zero-argument call} of every per-family function at
+    the phase's inputs: image (B, H, W, 5) f32 and labels on one device,
+    the fused measurement's stats for the ranges texture and quantiles are
+    given (as the measurement gives them), the CPnet and its tiles. The
+    one-channel forms take DNA, correlation (DNA, GFP)."""
+    import torch
+
+    from saguaro_tpu_torch.kernels import colocalization, glcm, objects_extra, qc, segment_reduce
+    from saguaro_tpu_torch.kernels.zernike import zernike_features
+    from saguaro_tpu_torch.models.cellpose import segment_tiles
+    from saguaro_tpu_torch.pipeline.features import otsu_threshold
+
+    b, h, w, n_ch = img.shape
+    dna = img[..., 0].contiguous()
+    cnt, vmin, vmax = fused["stats"]
+    codes = img.reshape(b, h * w, n_ch).round().to(torch.int32)
+    return {
+        "segment_stats": lambda: segment_reduce.segment_stats(dna, lab, MAX_CELLS),
+        "intensity_features": lambda: segment_reduce.intensity_features(dna, lab, MAX_CELLS),
+        "shape_features": lambda: segment_reduce.shape_features(lab, MAX_CELLS),
+        "correlation_features": lambda: segment_reduce.correlation_features(
+            dna, img[..., 1].contiguous(), lab, MAX_CELLS),
+        "zernike_features": lambda: zernike_features(lab, MAX_CELLS),
+        "object_glcm": lambda: glcm.object_glcm(dna, lab, MAX_CELLS, 16, 3,
+                                                stats=(vmin[..., 0], vmax[..., 0])),
+        "object_glcm_scatter": lambda: glcm.object_glcm_scatter(dna, lab, MAX_CELLS, 16, 3),
+        "quantile_intensity_features": lambda: objects_extra.quantile_intensity_features(
+            dna, lab, MAX_CELLS, stats=(cnt, vmin[..., 0], vmax[..., 0])),
+        "edge_intensity_features": lambda: objects_extra.edge_intensity_features(dna, lab, MAX_CELLS),
+        "radial_distribution_features": lambda: objects_extra.radial_distribution_features(
+            dna, lab, MAX_CELLS, 4),
+        "dense_rank_images": lambda: colocalization.dense_rank_images(
+            codes, lab.reshape(b, -1) > 0),
+        "otsu_threshold": lambda: otsu_threshold(img.permute(0, 3, 1, 2).reshape(-1, h, w)),
+        "radial_power_spectrum": lambda: qc.radial_power_spectrum(dna),
+        "segment_tiles": lambda: segment_tiles(model, tiles),
+    }
+
+
+def family_outputs(name: str, out) -> dict:
+    """One per-family function's output as {key: tensor}."""
+    if name == "segment_stats":
+        return dict(zip(("count", "sum", "sumsq", "min", "max"), out))
+    if name == "dense_rank_images":
+        return dict(zip(("ranks", "n_distinct"), out))
+    if name == "radial_power_spectrum":
+        return dict(zip(("magsum", "powersum"), out[1:]))
+    return out if isinstance(out, dict) else {"": out}
+
+
+def family_model_and_tiles(images, dev, n_tiles: int = FAMILY_TILES):
+    """The full-width CPnet in f32 (seeded weights, the same on every
+    device) and ``n_tiles`` tiles of the sites' first two channels, scaled
+    to O(1): 224² (the CLI's tile), or the sites' side where smaller."""
+    import torch
+
+    from saguaro_tpu_torch.models.cellpose import CellposeConfig, init_cellpose
+
+    cfg = CellposeConfig(compute_dtype="float32")
+    b, h = images.shape[:2]
+    t = min(cfg.tile, h) // 8 * 8
+    model = init_cellpose(cfg, seed=0, device=dev)
+    picks = [images[i % b, (i // b * t) % (h - t + 1):][:t, :t, :2] for i in range(n_tiles)]
+    return model, torch.as_tensor(np.stack(picks).astype(np.float32) / 1000.0, device=dev)
+
+
+def run_family_api(images, labels, dev, corner: int = CPU_CHECK_SIZE) -> tuple[dict, dict]:
+    """Every per-family function on the sites (labels the ground truth):
+    each run alone, its K1, K2, K3 and K6 launches counted and their first
+    inputs kept; held against the fused measurement's columns where a family
+    coincides (``hold_family_against_fused``), and card against CPU on
+    ``corner``² corners (``hold_family_against_cpu``), with the main path's
+    ring/wedge codes of the min-plus scan race held exactly there. Returns
+    (numbers, {API function: (launches by kernel, FamilyInputs)})."""
+    import torch
+
+    from saguaro_tpu_torch.device import full_f32
+    from saguaro_tpu_torch.kernels import segment_cuda as sc
+    from saguaro_tpu_torch.kernels.fused_measure import fused_object_features
+
+    img = torch.as_tensor(images.astype(np.float32), device=dev)
+    lab = torch.as_tensor(np.ascontiguousarray(labels), device=dev)
+    fused = fused_object_features(img, lab, MAX_CELLS, n_rings=4)
+    model, tiles = family_model_and_tiles(images, dev)
+    on_card = torch.device(dev).type == "cuda"
+    outs, runs, secs = {}, {}, {}
+    with full_f32():
+        for name, fn in family_calls(img, lab, fused, model, tiles).items():
+            sync(dev)
+            sc.reset_launch_counts()
+            t0 = time.perf_counter()
+            with FamilyInputs() as rec:
+                outs[name] = family_outputs(name, fn())
+                sync(dev)
+            secs[name] = time.perf_counter() - t0
+            launches = {k: sc.LAUNCHES[k] for k in rec.calls} if on_card else dict(rec.calls)
+            runs[name] = (launches, rec)
+    log("family API at the main path's sites: seconds " + json.dumps(secs) + "; launches "
+        + json.dumps({k: v[0] for k, v in runs.items()}))
+    reached = {k for launches, _ in runs.values() for k, n in launches.items() if n > 0}
+    if set(FAMILY_WRAPPED) - reached:
+        raise AssertionError(f"the family API did not launch {sorted(set(FAMILY_WRAPPED) - reached)}")
+    worst = hold_family_against_fused(images, labels, img, lab, fused, outs)
+    del outs, fused, img, lab, model, tiles
+    cpu = hold_family_against_cpu(images, labels, dev, corner)
+    return {"seconds": secs, "worst_of_tol": worst, "cpu_worst_of_tol": cpu,
+            "launches": {k: v[0] for k, v in runs.items()}}, runs
+
+
+def _exact(what, got, want):
+    import torch
+
+    if not torch.equal(got.cpu(), want.cpu()):
+        raise AssertionError(f"family API {what} differs")
+
+
+def _edge_var_tol(mean, std):
+    """The Edge set's std is compared as a variance: ``sumsq / n - mean**2``
+    cancels in f32 to FAMILY_SUM_RTOL of the mean square."""
+    return FAMILY_SUM_RTOL * (mean.double() ** 2 + std.double() ** 2).cpu().numpy()
+
+
+def hold_family_against_fused(images, labels, img, lab, fused, outs) -> dict:
+    """The per-family outputs against the fused measurement's columns, and
+    against the measurement's texture and quantile functions, on the
+    phase's sites: counts and FAMILY_EXACT columns, GLCMs (both
+    formulations) and the quantiles exactly; the
+    others within ``oracle_tolerance`` (the radial family also by what its
+    pixels on a ring boundary may move, ``ring_tie_allowance``; the Edge
+    std as a variance, ``_edge_var_tol``); the Haralick statistics of the
+    equal GLCMs within HARALICK_RTOL. Returns the worst ratio to the
+    tolerance by family."""
+    import torch
+
+    from saguaro_tpu_torch.kernels.glcm import (
+        haralick_features,
+        object_glcm_multichannel,
+        quantize_channels,
+    )
+    from saguaro_tpu_torch.kernels.objects_extra import quantile_intensity_features_mc
+    from saguaro_tpu_torch.kernels.onehot_reduce import mxu_take_t
+    from saguaro_tpu_torch.kernels.segment_reduce import _flat
+
+    b, h, w, n_ch = images.shape
+    sh = fused["shape"]
+    area = sh["Area"].cpu().numpy().astype(np.float64)
+    side = np.maximum((sh["BoundingBoxMaximum_Y"] - sh["BoundingBoxMinimum_Y"]).cpu().numpy(),
+                      (sh["BoundingBoxMaximum_X"] - sh["BoundingBoxMinimum_X"]).cpu().numpy()
+                      ).astype(np.float64)
+    worst: dict[str, float] = {}
+    ties = dict(zip(("FracAtD", "MeanFrac"), ring_tie_allowance(images, labels, 4, MAX_CELLS)))
+
+    def hold(family, key, got, want, extra=0.0):
+        if key.startswith(FAMILY_EXACT):
+            _exact(f"{family} {key}", got, want)
+            return
+        g = got.double().cpu().numpy()
+        wv = want.double().cpu().numpy()
+        tol = oracle_tolerance(family, key, wv, area, side, h, w) + extra
+        ratio = float((np.abs(g - wv) / tol).max())
+        worst[family] = max(worst.get(family, 0.0), ratio)
+        if ratio > 1.0:
+            raise AssertionError(f"family API {family} {key}: {ratio:.3g} of the tolerance")
+
+    cnt, vmin, vmax = fused["stats"]
+    st = outs["segment_stats"]
+    _exact("segment_stats count", st["count"], cnt)
+    _exact("segment_stats min", st["min"], vmin[..., 0])
+    _exact("segment_stats max", st["max"], vmax[..., 0])
+    hold("intensity", "IntegratedIntensity", st["sum"], fused["intensity"]["IntegratedIntensity"][..., 0])
+    for key, v in outs["intensity_features"].items():
+        hold("intensity", key, v, fused["intensity"][key][..., 0])
+    for key, v in outs["shape_features"].items():
+        hold("shape", key, v, sh[key])
+    hold("zernike", "0_0", outs["zernike_features"][""], fused["zernike"])
+    for i, key in enumerate(("Correlation", "Slope")):
+        hold("corr", key, outs["correlation_features"][key], fused["corr"][(0, 1)][i])
+    edge = fused["edge"]
+    for key, v in outs["edge_intensity_features"].items():
+        want = edge[key][..., 0]
+        if key == "StdIntensityEdge":
+            hold("edge", "Std", v.double() ** 2, want.double() ** 2,
+                 extra=_edge_var_tol(edge["MeanIntensityEdge"][..., 0], want))
+        else:
+            hold("edge", key, v, want)
+    for key, v in outs["radial_distribution_features"].items():
+        hold("radial", key, v, fused["radial"][key][..., 0], extra=ties[key][..., 0])
+
+    # texture: the measurement's GLCMs of the same channel, from its ranges
+    vrange = torch.clamp(vmax - vmin, min=1e-12)
+    g = mxu_take_t(torch.cat([vmin, vrange], dim=2), _flat(lab, MAX_CELLS), MAX_CELLS)
+    q = quantize_channels(img[..., :1], lab, 16, (g[:, :1], g[:, n_ch:n_ch + 1]))
+    want_glcm = object_glcm_multichannel(lab, MAX_CELLS, 16, 3, q)[:, 0]
+    del g, q
+    _exact("object_glcm", outs["object_glcm"][""], want_glcm)
+    _exact("object_glcm_scatter", outs["object_glcm_scatter"][""], want_glcm)
+    # the same GLCMs: the statistics differ only by index_add_'s atomics
+    har = haralick_features(want_glcm)
+    for key, v in haralick_features(outs["object_glcm"][""]).items():
+        g_, w_ = v.double().cpu(), har[key].double().cpu()
+        if not bool(((g_ - w_).abs() <= HARALICK_RTOL * w_.abs() + 1e-6).all()):
+            raise AssertionError(f"family API Haralick {key} differs beyond HARALICK_RTOL")
+    del want_glcm, har
+
+    quant = quantile_intensity_features_mc(img[..., :1], lab, MAX_CELLS,
+                                           stats=(cnt, vmin[..., :1], vmax[..., :1]))
+    for key, v in outs["quantile_intensity_features"].items():
+        _exact(f"quantiles {key}", v, quant[key][..., 0])
+    log(f"family API against the measurement: counts, boxes, min/max, GLCMs and quantiles exact, "
+        f"Haralick within {HARALICK_RTOL}; worst ratio to the tolerance by family {worst}")
+    return worst
+
+
+def hold_family_against_cpu(images, labels, dev, corner: int) -> dict:
+    """Every per-family function on ``corner``² corners of the sites (two
+    tiles of the corner for segment_tiles), card against CPU: integer
+    results (counts, areas, boxes, min / max, GLCMs, quantiles, dense
+    ranks, Otsu thresholds) exactly; segment_stats' sums within
+    FAMILY_SUM_RTOL of the per-label sum of |value|, derived columns within
+    ``oracle_tolerance`` (the Edge std as a variance, ``_edge_var_tol``);
+    the ring sums of the FFT within RPS_RTOL (+ 1e-6 of the largest ring);
+    segment_tiles within TILES_ATOL of its largest output; and the min-plus
+    race's ring/wedge codes (``cp_ring_wedge``, the main path's radial
+    geometry) exactly. The ILL_CONDITIONED columns (Orientation,
+    Eccentricity, MassDisplacement, Zernike: small differences of large
+    sums for round cells) are logged, not held, as in
+    ``check_small_against_cpu``. Returns the worst ratio to the tolerance
+    by function (0 where exact)."""
+    import torch
+
+    from saguaro_tpu_torch.device import full_f32
+    from saguaro_tpu_torch.kernels.fused_measure import fused_object_features
+    from saguaro_tpu_torch.kernels.radial import cp_ring_wedge
+
+    img_np = np.ascontiguousarray(images[:, :corner, :corner].astype(np.float32))
+    lab_np = np.ascontiguousarray(labels[:, :corner, :corner])
+    out = {}
+    for d in (dev, "cpu"):
+        img = torch.as_tensor(img_np, device=d)
+        lab = torch.as_tensor(lab_np, device=d)
+        fused = fused_object_features(img, lab, MAX_CELLS, n_rings=4)
+        model, tiles = family_model_and_tiles(img_np, d, n_tiles=2)
+        with full_f32():
+            res = {k: family_outputs(k, fn())
+                   for k, fn in family_calls(img, lab, fused, model, tiles).items()}
+        res["cp_ring_wedge"] = {"": cp_ring_wedge(lab, MAX_CELLS, 4, 64)}
+        out[str(d)] = res
+    card, cpu = out[str(dev)], out["cpu"]
+    area = cpu["shape_features"]["Area"].double().numpy()
+    side = np.full_like(area, float(corner))
+    exact_fns = ("object_glcm", "object_glcm_scatter", "quantile_intensity_features",
+                 "dense_rank_images", "otsu_threshold", "cp_ring_wedge")
+    family = {"intensity_features": "intensity", "shape_features": "shape",
+              "zernike_features": "zernike", "correlation_features": "corr",
+              "edge_intensity_features": "edge", "radial_distribution_features": "radial"}
+    lab_c = torch.as_tensor(lab_np)
+    seg = torch.where((lab_c > 0) & (lab_c < MAX_CELLS), lab_c, 0).reshape(len(lab_np), -1)
+    v_in = (torch.as_tensor(img_np[..., 0]).double() * (lab_c > 0)).reshape(len(lab_np), -1)
+    worst, ill = {}, {}
+    for fn_name, res in card.items():
+        for key, g in res.items():
+            c = cpu[fn_name][key].double()
+            g = g.double().cpu()
+            col = ORACLE_COLUMN[family[fn_name]].format(key) if fn_name in family else ""
+            if any(t in col for t in ILL_CONDITIONED):
+                # as check_small_against_cpu: small differences of large sums
+                # (odd moments of round cells); held against the fused
+                # measurement on the card above
+                ill[f"{fn_name} {key}"] = float((g - c).abs().max())
+                continue
+            if fn_name in exact_fns or key.startswith(FAMILY_EXACT) or key in ("count", "min", "max"):
+                if not torch.equal(g, c):
+                    raise AssertionError(f"family API {fn_name} {key}: card differs from CPU")
+                worst.setdefault(fn_name, 0.0)
+                continue
+            if fn_name == "segment_stats":
+                vals = v_in if key == "sum" else v_in * v_in
+                scale = FAMILY_SUM_RTOL * torch.stack([
+                    torch.bincount(seg[i], vals[i].abs(), minlength=MAX_CELLS)
+                    for i in range(len(seg))]) + 1e-6
+            elif fn_name == "radial_power_spectrum":
+                scale = RPS_RTOL * c.abs() + 1e-6 * float(c.abs().max())
+            elif fn_name == "segment_tiles":
+                scale = torch.full_like(c, TILES_ATOL * float(c.abs().max()))
+            elif key == "StdIntensityEdge":
+                g, c = g * g, c * c
+                scale = torch.as_tensor(oracle_tolerance("edge", "Std", c.numpy(), area, side,
+                                                         corner, corner)
+                                        + _edge_var_tol(cpu[fn_name]["MeanIntensityEdge"],
+                                                        cpu[fn_name][key]))
+            else:
+                scale = torch.as_tensor(oracle_tolerance(family[fn_name], key, c.numpy(), area,
+                                                         side, corner, corner))
+            ratio = float(((g - c).abs() / scale).max())
+            worst[fn_name] = max(worst.get(fn_name, 0.0), ratio)
+            if ratio > 1.0:
+                raise AssertionError(f"family API {fn_name} {key}: card vs CPU {ratio:.3g} of the "
+                                     f"tolerance")
+    log(f"family API {corner}² corners, card vs CPU: worst ratio to the tolerance by function "
+        f"{worst} (0 = exact); ill-conditioned columns, largest difference {ill}")
+    return worst
+
+
+def hold_family_kernels(runs: dict, dev, entry) -> dict:
+    """K1, K2, K3 and K6 at each per-family function's first inputs to
+    them: held against the plain forms (exactly, K3 to SUM_RTOL with its
+    count lane exact, ``hold_k3_site``), timed, and written as kernel rows
+    ``<kernel>[<function>]``. Returns {row: launches in the function's
+    run}."""
+    from types import SimpleNamespace
+
+    rows = {}
+    for fn_name, (launches, rec) in runs.items():
+        for kernel, args in rec.inputs.items():
+            name = f"{kernel}[{fn_name}]"
+            n = launches.get(kernel, 0)
+            if kernel == "seg_counts":
+                lab, codes, sizes, mc = args
+                hold_k1_site(name, lab, codes, sizes, mc, dev, entry)
+            elif kernel == "seg_sums":
+                lab, val, mc = args
+                site = SimpleNamespace(inputs={fn_name: (lab, val, mc)}, calls={fn_name: n})
+                hold_k3_site(site, fn_name, name, dev, entry, count_lane=0)
+            elif kernel == "seg_take_t":
+                hold_k2_site(name, *args, dev, entry)
+            elif kernel == "seg_pick2":
+                hold_k6_site(name, *args, dev, entry)
+            rows[name] = n
+    return rows
+
+
+def hold_k2_site(name, table, seg, mc, dev, entry):
+    """K2 on one call site's inputs (a (B, max_cells, K) table, (B, N)
+    labels), exactly against the plain form, timed beside one
+    ``table[site, seg]``; the bound: the table and the labels read, the
+    (K, N) rows written."""
+    import torch
+
+    from saguaro_tpu_torch.kernels import segment_cuda as sc
+
+    b, n = seg.shape
+    k = table.shape[2]
+    if not torch.equal(sc.seg_take_t(table, seg, mc), sc.take_t_plain(table, seg, mc)):
+        raise AssertionError(f"K2 {name} differs from the plain form")
+    site = torch.arange(b, device=dev)[:, None]
+    seg_l = seg.long()
+    entry(name, "saguaro_tpu_torch/csrc/take.cu", f"{PALLAS}:383", 0.0,
+          lambda: sc.seg_take_t(table, seg, mc), lambda: sc.take_t_plain(table, seg, mc),
+          n_bytes=4.0 * b * (mc * k + n + k * n), n_ops=0.0, library=lambda: table[site, seg_l])
+
+
+def hold_k6_site(name, hi, lo, tables, dev, entry, bare=None):
+    """K6 on one call site's inputs, exactly against the plain form, timed
+    (and, given its ``bare`` C call, timed bare) beside one advanced-index
+    read of the flat tables; the bound: each item's two codes read and its
+    K picks written, the tables read once."""
+    import torch
+
+    from saguaro_tpu_torch.kernels import segment_cuda as sc
+
+    b, n, n_ch = hi.shape
+    k = tables.shape[4]
+    if not torch.equal(sc.seg_pick2(hi, lo, tables), sc.pick2_plain(hi, lo, tables)):
+        raise AssertionError(f"K6 {name} differs from the plain form")
+    flat_t = tables.view(b, n_ch, 65536, k)
+    p_idx = hi.long() * 256 + lo.long()
+    site = torch.arange(b, device=dev)[:, None, None]
+    chan = torch.arange(n_ch, device=dev)[None, None, :]
+    entry(name, "saguaro_tpu_torch/csrc/pick2.cu", f"{PALLAS}:824", 0.0,
+          lambda: sc.seg_pick2(hi, lo, tables), lambda: sc.pick2_plain(hi, lo, tables),
+          n_bytes=b * n * n_ch * (8.0 + 4.0 * k) + 4.0 * tables.numel(), n_ops=0.0,
+          library=lambda: flat_t[site, chan, p_idx], bare=bare)
 
 
 def compare_tables(got, want, what: str) -> float:
@@ -3065,6 +3502,13 @@ def main() -> int:
     t0 = time.perf_counter()
     oracles = check_oracles(images, gt, dev)
     log(f"oracles phase {time.perf_counter() - t0:.1f} s: " + json.dumps(oracles))
+    t0 = time.perf_counter()
+    family, family_runs = run_family_api(images, gt, dev)
+    family["rows"] = hold_family_kernels(family_runs, dev, add_entry)
+    for name, n in family["rows"].items():
+        kernels[name]["launches"] = n
+    del family_runs
+    log(f"family-API phase {time.perf_counter() - t0:.1f} s: " + json.dumps(family))
     t0 = time.perf_counter()
     gran = check_granularity(images, dev)
     log(f"granularity phase {time.perf_counter() - t0:.1f} s: " + json.dumps(gran))

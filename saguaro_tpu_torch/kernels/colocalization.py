@@ -42,6 +42,7 @@ from saguaro_tpu_torch.kernels.onehot_reduce import onehot_counts, segment_matmu
 from saguaro_tpu_torch.kernels.segment_cuda import _pairs
 
 __all__ = [
+    "dense_rank_images",
     "costes_thresholds",
     "costes_fine_refine",
     "coloc_threshold_sums",
@@ -89,6 +90,29 @@ def _value_count_tables(hi: torch.Tensor, lo: torch.Tensor, insides: list) -> to
                              label_valid=any_in)
         out.append(torch.stack(cnts, dim=-1))
     return torch.stack(out, dim=1)
+
+
+def dense_rank_images(codes: torch.Tensor, inside: torch.Tensor):
+    """Dense ranks of each pixel's value among the distinct values inside a
+    mask, per channel (CP's lexsort/cumsum dense ranking of the RWC block),
+    exact for 16-bit integer codes.
+
+    codes (B, N, C) int32 in [0, 65535]; inside (B, N) bool. Returns (ranks
+    (B, N, C) f32, 0-based, picked for every pixel from its value's entry
+    in the mask's table; distinct values (B, C) f32). The (hi, lo) byte
+    counts are one histogram a channel (K1), the rank tables exclusive
+    cumsums of their presence, the per-pixel pick one two-level lookup
+    (K6)."""
+    hi = (codes >> 8).to(torch.int32)
+    lo = (codes & 0xFF).to(torch.int32)
+    cnts = _value_count_tables(hi, lo, [inside])  # (B, C, 256, 256, 1)
+    tables, n_distinct = [], []
+    for c in range(codes.shape[2]):
+        t, nd = _rank_table(cnts[:, c, :, :, 0])
+        tables.append(t)
+        n_distinct.append(nd)
+    ranks = _pick_rows_mc(hi, lo, torch.stack(tables, dim=1)[..., None])[..., 0]
+    return ranks, torch.stack(n_distinct, dim=1)
 
 
 def _xla_cumsum(x: torch.Tensor) -> torch.Tensor:

@@ -26,7 +26,7 @@ import torch
 
 from saguaro_tpu_torch.kernels import segment_cuda as sc
 from saguaro_tpu_torch.kernels.onehot_reduce import mxu_take_t
-from saguaro_tpu_torch.kernels.segment_reduce import _flat, perimeter_weight_image
+from saguaro_tpu_torch.kernels.segment_reduce import _flat, _segment_reduce, perimeter_weight_image
 from saguaro_tpu_torch.kernels.zernike import ZERNIKE_INDEXES, _radial_coeffs
 
 __all__ = ["fused_object_features"]
@@ -58,17 +58,6 @@ def _radial_sums(labels, codes, vr, max_cells, n_codes):
     if labels.is_cuda:
         return sc.seg_radial_sums(labels, codes, vr, max_cells, n_codes)
     return sc.radial_sums_plain(labels, codes, vr, max_cells, n_codes)
-
-
-def _segment_reduce(vals: torch.Tensor, seg: torch.Tensor, max_cells: int, op: str):
-    """(B, N, K) values + (B, N) slots -> (B, max_cells, K) per-slot min or
-    max; slots no pixel reaches hold the identity (+-inf), as
-    ``jax.ops.segment_min/max`` return. No Pallas kernel computes these."""
-    b, _, k = vals.shape
-    fill = math.inf if op == "amin" else -math.inf
-    out = torch.full((b, max_cells, k), fill, dtype=vals.dtype, device=vals.device)
-    idx = seg.long()[..., None].expand(-1, -1, k)
-    return out.scatter_reduce_(1, idx, vals, op, include_self=False)
 
 
 def fused_object_features(

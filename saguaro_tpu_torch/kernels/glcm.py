@@ -10,6 +10,11 @@ are counted in L(L+1)/2 triangular columns. All channels x directions
 CUDA). The 13 Haralick statistics are closed forms over the normalized
 (L, L) matrices.
 
+``object_glcm`` is the reference's one-channel form (its own per-object
+ranges, or the ``stats`` or ``quantized`` it is given), counted by the same
+histogram; ``object_glcm_scatter`` counts the full L x L matrices with a
+plain scatter, the formulation the reference keeps for parity tests.
+
 Every function takes a leading site-batch dimension.
 """
 
@@ -18,12 +23,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from saguaro_tpu_torch.kernels.onehot_reduce import onehot_counts
-from saguaro_tpu_torch.kernels.segment_reduce import _flat
+from saguaro_tpu_torch.kernels.onehot_reduce import mxu_take_t, onehot_counts
+from saguaro_tpu_torch.kernels.segment_reduce import _flat, segment_stats
 
 __all__ = [
-    "quantize_channels", "glcm_pair_codes", "object_glcm_multichannel", "haralick_features",
-    "HARALICK_NAMES",
+    "quantize_channels", "glcm_pair_codes", "object_glcm", "object_glcm_multichannel",
+    "object_glcm_scatter", "haralick_features", "HARALICK_NAMES",
 ]
 
 HARALICK_NAMES = (
@@ -86,6 +91,17 @@ def _tri_expand(hist: torch.Tensor, levels: int) -> torch.Tensor:
     return sym * (1.0 + diag)
 
 
+def _neighbour_pairs(lab, inside, q, distance):
+    """Per direction: the grey level at (y + dy, x + dx) and whether the
+    pair lies inside one object; lab (B, H, W) slot labels, q (B, H, W)."""
+    for dy, dx in _DIRECTIONS:
+        dy, dx = dy * distance, dx * distance
+        q2 = _shifted(q, dy, dx, 0)
+        lab2 = _shifted(lab, dy, dx, -1)
+        inside2 = _shifted(inside, dy, dx, False)
+        yield q2, inside & inside2 & (lab == lab2)
+
+
 def glcm_pair_codes(
     labels: torch.Tensor, max_cells: int, levels: int, distance: int, quantized: torch.Tensor
 ) -> tuple[torch.Tensor, list[tuple[torch.Tensor, torch.Tensor, int]]]:
@@ -99,16 +115,70 @@ def glcm_pair_codes(
     planes = []
     for c in range(n_ch):
         q = quantized[:, c]
-        for dy, dx in _DIRECTIONS:
-            dy, dx = dy * distance, dx * distance
-            q2 = _shifted(q, dy, dx, 0)
-            lab2 = _shifted(lab, dy, dx, -1)
-            inside2 = _shifted(inside, dy, dx, False)
+        for q2, ok in _neighbour_pairs(lab, inside, q, distance):
             lo = torch.minimum(q, q2)
             hi = torch.maximum(q, q2)
-            planes.append(((hi * (hi + 1) // 2 + lo).reshape(b, -1),
-                           (inside & inside2 & (lab == lab2)).reshape(b, -1), nt))
+            planes.append(((hi * (hi + 1) // 2 + lo).reshape(b, -1), ok.reshape(b, -1), nt))
     return lab.reshape(b, -1), planes
+
+
+def _quantize(image: torch.Tensor, labels: torch.Tensor, max_cells: int, levels: int,
+              stats=None) -> torch.Tensor:
+    """(B, H, W) image -> (B, H, W) int32 grey levels over each object's
+    own range: ``stats`` = (vmin, vmax) each (B, max_cells), else
+    ``segment_stats``'; the per-pixel (vmin, vrange) are one gather (K2 on
+    CUDA)."""
+    if stats is None:
+        _, _, _, vmin, vmax = segment_stats(image, labels, max_cells)
+    else:
+        vmin, vmax = stats
+    vrange = torch.clamp(vmax - vmin, min=1e-12)
+    g = mxu_take_t(torch.stack([vmin, vrange], dim=2), _flat(labels, max_cells), max_cells)
+    return quantize_channels(image[..., None], labels, levels, (g[:, :1], g[:, 1:]))[:, 0]
+
+
+def object_glcm(
+    image: torch.Tensor,
+    labels: torch.Tensor,
+    max_cells: int = 1024,
+    levels: int = 16,
+    distance: int = 3,
+    stats=None,
+    quantized: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """(B, H, W) image + labels -> (B, 4, max_cells, L, L) normalized
+    symmetric GLCMs of one channel, one a direction; the four directions'
+    pairs are counted by one fused histogram (K1 on CUDA). ``stats``:
+    (vmin, vmax) each (B, max_cells), e.g. the fused measurement's;
+    ``quantized``: (B, H, W) grey levels already made, which skip the
+    range lookup."""
+    q = _quantize(image, labels, max_cells, levels, stats) if quantized is None else quantized
+    return object_glcm_multichannel(labels, max_cells, levels, distance, q[:, None])[:, 0]
+
+
+def object_glcm_scatter(
+    image: torch.Tensor,
+    labels: torch.Tensor,
+    max_cells: int = 1024,
+    levels: int = 16,
+    distance: int = 3,
+) -> torch.Tensor:
+    """``object_glcm`` by a plain scatter of every (label, q, q2) pair into
+    full L x L counts, symmetrized as C + C^T; kept for parity tests."""
+    b = labels.shape[0]
+    l2 = levels * levels
+    lab = _flat(labels, max_cells).reshape(labels.shape)
+    q = _quantize(image, labels, max_cells, levels)
+    site = torch.arange(b, device=labels.device)[:, None, None] * (max_cells * l2)
+    out = []
+    for q2, ok in _neighbour_pairs(lab, labels > 0, q, distance):
+        idx = (site + lab * l2 + q * levels + q2).reshape(-1).long()
+        counts = torch.zeros(b * max_cells * l2, dtype=torch.float32, device=labels.device)
+        counts.index_add_(0, idx, ok.reshape(-1).float())
+        counts = counts.view(b, max_cells, levels, levels)
+        sym = counts + counts.transpose(2, 3)
+        out.append(sym / torch.clamp(sym.sum(dim=(2, 3), keepdim=True), min=1e-12))
+    return torch.stack(out, dim=1)
 
 
 def object_glcm_multichannel(

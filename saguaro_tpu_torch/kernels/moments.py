@@ -26,17 +26,12 @@ import math
 
 import torch
 
-from saguaro_tpu_torch.kernels.fused_measure import _segment_reduce
 from saguaro_tpu_torch.kernels.onehot_reduce import segment_matmul_sums
+from saguaro_tpu_torch.kernels.segment_reduce import _segment_reduce, _take
 
 __all__ = ["moments_features"]
 
 _ORDERS = [(p, q) for p in range(4) for q in range(4)]
-
-
-def _gather(table: torch.Tensor, seg: torch.Tensor) -> torch.Tensor:
-    """(B, max_cells) per-object values -> (B, N) per-pixel values."""
-    return torch.gather(table, 1, seg.long())
 
 
 def moments_features(labels: torch.Tensor, max_cells: int = 1024) -> dict[str, torch.Tensor]:
@@ -66,10 +61,10 @@ def moments_features(labels: torch.Tensor, max_cells: int = 1024) -> dict[str, t
     xmin = torch.where(zero, 0.0, corner[..., 1])
 
     # pass 2: object-local coordinates per pixel, then the power sums
-    yc = (y - _gather(cy, seg)) * inside
-    xc = (x - _gather(cx, seg)) * inside
-    yb = (y - _gather(ymin, seg)) * inside
-    xb = (x - _gather(xmin, seg)) * inside
+    yc = (y - _take(cy, seg)) * inside
+    xc = (x - _take(cx, seg)) * inside
+    yb = (y - _take(ymin, seg)) * inside
+    xb = (x - _take(xmin, seg)) * inside
 
     def power_products(yloc, xloc):
         ypow = [inside, yloc, yloc * yloc, yloc * yloc * yloc]

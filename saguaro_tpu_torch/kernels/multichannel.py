@@ -23,9 +23,9 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from saguaro_tpu_torch.kernels.fused_measure import _segment_reduce
 from saguaro_tpu_torch.kernels.onehot_reduce import segment_matmul_sums
 from saguaro_tpu_torch.kernels.segment_cuda import _pairs
+from saguaro_tpu_torch.kernels.segment_reduce import _coords, _flat, _segment_reduce, _take
 
 __all__ = [
     "multichannel_stats",
@@ -36,32 +36,12 @@ __all__ = [
 _BIG = 3.4e38
 
 
-def _gather(table: torch.Tensor, seg: torch.Tensor) -> torch.Tensor:
-    """(B, max_cells, K) or (B, max_cells) per-object values -> per-pixel
-    (B, N, K) or (B, N)."""
-    idx = seg.long()
-    if table.dim() == 2:
-        return torch.gather(table, 1, idx)
-    return torch.gather(table, 1, idx[..., None].expand(-1, -1, table.shape[2]))
-
-
-def _coords(b: int, h: int, w: int, device) -> tuple[torch.Tensor, torch.Tensor]:
-    y = torch.arange(h, dtype=torch.float32, device=device).repeat_interleave(w).expand(b, -1)
-    x = torch.arange(w, dtype=torch.float32, device=device).repeat(h).expand(b, -1)
-    return y, x
-
-
-def _seg(labels: torch.Tensor, max_cells: int) -> torch.Tensor:
-    flat = labels.reshape(labels.shape[0], -1).to(torch.int32)
-    return torch.where((flat > 0) & (flat < max_cells), flat, torch.zeros_like(flat))
-
-
 def multichannel_stats(image: torch.Tensor, labels: torch.Tensor, max_cells: int = 1024):
     """Intensity and correlation families of every channel at once: image
     (B, H, W, C), labels (B, H, W) -> (intensity {column: (B, max_cells,
     C)}, correlation {(a, b): (Correlation, Slope) each (B, max_cells)})."""
     b, h, w, n_ch = image.shape
-    seg = _seg(labels, max_cells)
+    seg = _flat(labels, max_cells)
     inside_m = labels.reshape(b, -1) > 0
     inside = inside_m.float()
     vr = image.reshape(b, h * w, n_ch).float()
@@ -81,7 +61,7 @@ def multichannel_stats(image: torch.Tensor, labels: torch.Tensor, max_cells: int
     mean = s / denom[..., None]
 
     # pass 2: centred quadratics, C squares + C(C-1)/2 cross products
-    vc = (vr - _gather(mean, seg)) * inside[..., None]
+    vc = (vr - _take(mean, seg)) * inside[..., None]
     pairs = _pairs(n_ch)
     payload2 = torch.cat([vc * vc] + ([torch.stack([vc[..., a] * vc[..., c] for a, c in pairs],
                                                    dim=-1)] if pairs else []), dim=-1)
@@ -94,7 +74,7 @@ def multichannel_stats(image: torch.Tensor, labels: torch.Tensor, max_cells: int
     ins = inside_m[..., None]
     vmin = _segment_reduce(torch.where(ins, vr, torch.full_like(vr, _BIG)), seg, max_cells, "amin")
     vmax = _segment_reduce(torch.where(ins, vr, torch.full_like(vr, -_BIG)), seg, max_cells, "amax")
-    at_max = ins & (vr >= _gather(vmax, seg))
+    at_max = ins & (vr >= _take(vmax, seg))
     idx = torch.arange(h * w, dtype=torch.float32, device=image.device)[None, :, None]
     pick = _segment_reduce(torch.where(at_max, idx.expand_as(vr), torch.full_like(vr, float(h * w))),
                            seg, max_cells, "amin")
@@ -153,7 +133,7 @@ def edge_intensity_multichannel(image: torch.Tensor, labels: torch.Tensor, max_c
     cnt, s = sums[..., 0], sums[..., 1:]
     denom = torch.clamp(cnt, min=1.0)
     mean = s / denom[..., None]
-    vc = (vr - _gather(mean, seg)) * onf[..., None]
+    vc = (vr - _take(mean, seg)) * onf[..., None]
     var = torch.clamp(segment_matmul_sums(seg, vc * vc, max_cells) / denom[..., None], min=0.0)
     del vc
     ins = on[..., None]
@@ -180,7 +160,7 @@ def radial_distribution_multichannel(image: torch.Tensor, labels: torch.Tensor,
     largest such distance): image (B, H, W, C), labels (B, H, W) ->
     {"FracAtD", "MeanFrac"} each (B, max_cells, n_rings, C)."""
     b, h, w, n_ch = image.shape
-    seg = _seg(labels, max_cells)
+    seg = _flat(labels, max_cells)
     inside = (labels.reshape(b, -1) > 0).float()
     v = image.reshape(b, h * w, n_ch).float() * inside[..., None]
     yf, xf = _coords(b, h, w, image.device)
@@ -189,12 +169,12 @@ def radial_distribution_multichannel(image: torch.Tensor, labels: torch.Tensor,
     cnt = sums[..., 0]
     denom = torch.clamp(cnt, min=1.0)
     cy, cx = sums[..., 1] / denom, sums[..., 2] / denom
-    dy = yf - _gather(cy, seg)
-    dx = xf - _gather(cx, seg)
+    dy = yf - _take(cy, seg)
+    dx = xf - _take(cx, seg)
     dist = torch.sqrt(dy * dy + dx * dx)
     dmax = _segment_reduce(torch.where(inside > 0, dist, torch.full_like(dist, -1.0))[..., None],
                            seg, max_cells, "amax")[..., 0]
-    dnorm = dist / torch.clamp(_gather(dmax, seg), min=1e-6)
+    dnorm = dist / torch.clamp(_take(dmax, seg), min=1e-6)
     ring = torch.clamp((dnorm * n_rings).to(torch.int32), 0, n_rings - 1)
     keys = seg * n_rings + ring
     ring_sums = segment_matmul_sums(keys, torch.cat([inside[..., None], v], dim=-1),

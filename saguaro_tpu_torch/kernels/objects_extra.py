@@ -9,10 +9,16 @@
   same rank machinery on a per-object adaptive 16-bit grid;
 * ``neighbor_features``: CP MeasureObjectNeighbors' NumberOfNeighbors
   (after growing labels into the background) and PercentTouching, from 4
-  directional (label, neighbour) histograms.
+  directional (label, neighbour) histograms;
+* the reference's one-channel forms: ``quantile_intensity_features`` (the
+  multichannel one on one channel), ``edge_intensity_features``
+  (``segment_stats`` over the 4-neighbour boundary pixels) and
+  ``radial_distribution_features`` (FracAtD / MeanFrac by rings of the
+  centroid distance over each object's largest one; sums on K3).
 
 Every function takes a leading site-batch dimension: image (B, H, W, C),
-labels (B, H, W); per-object outputs (B, max_cells, C) or (B, max_cells).
+or (B, H, W) for the one-channel forms, labels (B, H, W); per-object
+outputs (B, max_cells, C) or (B, max_cells).
 """
 
 from __future__ import annotations
@@ -20,10 +26,40 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from saguaro_tpu_torch.kernels.onehot_reduce import mxu_take_t, onehot_counts
-from saguaro_tpu_torch.kernels.segment_reduce import _boundary, _flat, _shift
+from saguaro_tpu_torch.kernels import segment_cuda as sc
+from saguaro_tpu_torch.kernels.onehot_reduce import mxu_take_t, onehot_counts, segment_matmul_sums
+from saguaro_tpu_torch.kernels.segment_reduce import (
+    _boundary,
+    _coords,
+    _flat,
+    _segment_reduce,
+    _shift,
+    _take,
+    segment_stats,
+)
 
-__all__ = ["quantile_intensity_features_mc", "neighbor_features"]
+__all__ = [
+    "quantile_intensity_features",
+    "quantile_intensity_features_mc",
+    "edge_intensity_features",
+    "radial_distribution_features",
+    "neighbor_features",
+]
+
+
+def quantile_intensity_features(
+    image: torch.Tensor, labels: torch.Tensor, max_cells: int = 1024, stats=None,
+    integer_grid: bool = True,
+) -> dict[str, torch.Tensor]:
+    """Median / MAD / lower and upper quartile intensity of one channel:
+    image, labels (B, H, W) -> {column: (B, max_cells)}.
+    ``stats``: (cnt, vmin, vmax) each (B, max_cells)."""
+    mc = quantile_intensity_features_mc(
+        image[..., None], labels, max_cells,
+        stats=None if stats is None else (stats[0], stats[1][..., None], stats[2][..., None]),
+        integer_grid=integer_grid,
+    )
+    return {k: v[..., 0] for k, v in mc.items()}
 
 
 def _rank_positions(n: torch.Tensor):
@@ -242,3 +278,70 @@ def neighbor_features(
     )
     pct = 100.0 * t_cnt[..., 0] / torch.clamp(b_cnt[..., 0], min=1.0)
     return {"NumberOfNeighbors": n_neighbors, "PercentTouching": pct}
+
+
+def edge_intensity_features(image: torch.Tensor, labels: torch.Tensor, max_cells: int = 1024):
+    """CP's Edge intensity set of one channel: ``segment_stats`` over each
+    object's boundary pixels (a 4-neighbour of another label, the image
+    border counting as background); the variance is the reference's
+    uncentred ``sumsq / n - mean**2``. image, labels (B, H, W) ->
+    {column: (B, max_cells)}."""
+    lab = labels.to(torch.int32)
+    edge_labels = torch.where(_boundary(lab), lab, torch.zeros_like(lab))
+    cnt, s, ss, vmin, vmax = segment_stats(image, edge_labels, max_cells)
+    denom = torch.clamp(cnt, min=1.0)
+    mean = s / denom
+    var = torch.clamp(ss / denom - mean * mean, min=0.0)
+    zero = cnt <= 0
+
+    def z(a):
+        return torch.where(zero, torch.zeros_like(a), a)
+
+    return {
+        "IntegratedIntensityEdge": z(s),
+        "MeanIntensityEdge": z(mean),
+        "StdIntensityEdge": z(torch.sqrt(var)),
+        "MinIntensityEdge": z(vmin),
+        "MaxIntensityEdge": z(vmax),
+    }
+
+
+def radial_distribution_features(
+    image: torch.Tensor, labels: torch.Tensor, max_cells: int = 1024, n_rings: int = 4
+) -> dict[str, torch.Tensor]:
+    """CP MeasureObjectIntensityDistribution core of one channel, rings of
+    the centroid distance over the object's largest one: FracAtD (the
+    ring's share of the object's intensity) and MeanFrac (that over the
+    ring's share of the object's pixels). image, labels (B, H, W) ->
+    {"FracAtD", "MeanFrac"} each (B, max_cells, n_rings). A ring is a
+    floor, so the distance is rounded as the reference's program rounds it
+    (one fused multiply-add, a correctly rounded square root)."""
+    b, h, w = labels.shape
+    seg = _flat(labels, max_cells)
+    inside = (labels.reshape(b, -1) > 0).float()
+    v = image.reshape(b, -1).float() * inside
+    yf, xf = _coords(b, h, w, labels.device)
+    sums = segment_matmul_sums(seg, torch.stack([inside, yf * inside, xf * inside], dim=-1),
+                               max_cells)
+    cnt = sums[..., 0]
+    denom = torch.clamp(cnt, min=1.0)
+    dy = yf - _take(sums[..., 1] / denom, seg)
+    dx = xf - _take(sums[..., 2] / denom, seg)
+    dist = sc.sqrt32(sc.fma32(dy, dy, dx * dx))
+    dmax = _segment_reduce(torch.where(inside > 0, dist, torch.full_like(dist, -1.0)), seg,
+                        max_cells, "amax")
+    dnorm = dist / torch.clamp(_take(dmax, seg), min=1e-6)
+    ring = torch.clamp((dnorm * n_rings).to(torch.int32), 0, n_rings - 1)
+    keys = seg * n_rings + ring
+    ring_sums = segment_matmul_sums(keys, torch.stack([v, inside], dim=-1), max_cells * n_rings)
+    ring_sums = ring_sums.view(b, max_cells, n_rings, 2)
+    ring_int, ring_cnt = ring_sums[..., 0], ring_sums[..., 1]
+    total_int = torch.clamp(ring_int.sum(dim=2, keepdim=True), min=1e-12)
+    frac_at_d = ring_int / total_int
+    pix_frac = ring_cnt / torch.clamp(cnt[..., None], min=1.0)
+    mean_frac = frac_at_d / torch.clamp(pix_frac, min=1e-12)
+    zero = (cnt <= 0)[..., None]
+    return {
+        "FracAtD": torch.where(zero, torch.zeros_like(frac_at_d), frac_at_d),
+        "MeanFrac": torch.where(zero, torch.zeros_like(mean_frac), mean_frac),
+    }

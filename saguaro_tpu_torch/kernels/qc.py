@@ -24,7 +24,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-__all__ = ["qc_metrics", "qc_metrics_batch"]
+__all__ = ["radial_power_spectrum", "qc_metrics", "qc_metrics_batch"]
 
 
 @lru_cache(maxsize=32)
@@ -51,9 +51,9 @@ def _median(x: torch.Tensor) -> torch.Tensor:
     return s[:, (n - 1) // 2] * 0.5 + s[:, n // 2] * 0.5
 
 
-def _rps_sums(imgs: torch.Tensor, labels: torch.Tensor, num_rings: int) -> torch.Tensor:
-    """(B, H, W) images + (H * W,) int64 ring labels -> (B, num_rings - 2)
-    power sums of rings 2 .. num_rings - 1."""
+def _rps_sums(imgs: torch.Tensor, labels: torch.Tensor, num_rings: int):
+    """(B, H, W) images + (H * W,) int64 ring labels -> (magnitude sums,
+    power sums), each (B, num_rings - 2), of rings 2 .. num_rings - 1."""
     b = imgs.shape[0]
     flat = imgs.float().reshape(b, -1)
     mean = flat.mean(dim=1, keepdim=True)
@@ -61,11 +61,32 @@ def _rps_sums(imgs: torch.Tensor, labels: torch.Tensor, num_rings: int) -> torch
     med = _median((flat - mean).abs())
     flat = torch.where(ptp[:, None] > 0, flat / med[:, None], flat)
     centred = (flat - flat.mean(dim=1, keepdim=True)).reshape(imgs.shape)
-    mag = torch.fft.fft2(centred).abs()
-    power = (mag * mag).reshape(b, -1)
-    sums = torch.zeros((b, num_rings + 1), dtype=torch.float32, device=imgs.device)
-    sums.index_add_(1, labels, power)
-    return sums[:, 2:num_rings]
+    mag = torch.fft.fft2(centred).abs().reshape(b, -1)
+    sums = torch.zeros((2, b, num_rings + 1), dtype=torch.float32, device=imgs.device)
+    sums[0].index_add_(1, labels, mag)
+    sums[1].index_add_(1, labels, mag * mag)
+    return sums[0, :, 2:num_rings], sums[1, :, 2:num_rings]
+
+
+def radial_power_spectrum(img: torch.Tensor):
+    """(radii, magnitude sums, power sums) of the rings 2 .. L-1 of an
+    image's FFT, centrosome ``rps``'s triple: img (H, W), or (B, H, W) for
+    sums of shape (B, L - 2). Radii are a numpy array; images whose
+    ``L = floor(min(H, W) / 8)`` is at most 2 give ``[2]`` and zero sums."""
+    img = torch.as_tensor(img)
+    one = img.dim() == 2
+    imgs = img[None] if one else img
+    labels, L = _radius_labels(tuple(imgs.shape[1:]))
+    if L <= 2:
+        radii = np.array([2])
+        magsum = powersum = torch.zeros((imgs.shape[0], 1), dtype=torch.float32, device=imgs.device)
+    else:
+        radii = np.arange(2, L)
+        lab = torch.as_tensor(labels.reshape(-1), dtype=torch.int64, device=imgs.device)
+        magsum, powersum = _rps_sums(imgs, lab, L)
+    if one:
+        magsum, powersum = magsum[0], powersum[0]
+    return radii, magsum, powersum
 
 
 def _slope_from_powersum(radii_log: torch.Tensor, powersum: torch.Tensor) -> torch.Tensor:
@@ -101,7 +122,7 @@ def qc_metrics_batch(imgs: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     if L <= 2:
         return torch.zeros(imgs.shape[0], dtype=torch.float32, device=imgs.device), pct
     lab = torch.as_tensor(labels.reshape(-1), dtype=torch.int64, device=imgs.device)
-    powersum = _rps_sums(imgs, lab, L)
+    _, powersum = _rps_sums(imgs, lab, L)
     radii_log = torch.log(torch.arange(2, L, dtype=torch.float32, device=imgs.device))
     return _slope_from_powersum(radii_log, powersum), pct
 

@@ -37,6 +37,7 @@ __all__ = [
     "normalize_input",
     "segment_image",
     "segment_image_batch",
+    "segment_tiles",
     "flow_loss",
     "train_step",
 ]
@@ -297,6 +298,16 @@ def _tile_grid(size: int, tile: int, overlap: float) -> tuple[int, ...]:
     if starts[-1] != size - tile:
         starts.append(size - tile)
     return tuple(starts)
+
+
+@torch.no_grad()
+def segment_tiles(model: CellposeUNet, tiles: torch.Tensor) -> torch.Tensor:
+    """The network over an (N, tile, tile, C) batch of tiles on the model's
+    device -> (N, tile, tile, 3) f32 [flow_y, flow_x, cellprob logit] (the
+    reference's ``segment_tiles(apply_fn, variables, tiles)``, the module
+    in place of its function and variables)."""
+    device = next(model.parameters()).device
+    return model(torch.as_tensor(tiles, device=device).float()).float()
 
 
 def _network_shape(h0: int, w0: int, config: CellposeConfig, diameter: float | None):

@@ -29,7 +29,8 @@ import torch
 from torch.profiler import record_function
 
 from saguaro_tpu_torch.device import on_device, resolve_device
-from saguaro_tpu_torch.kernels.colocalization import colocalization_features_multiset
+from saguaro_tpu_torch.kernels import segment_cuda as sc
+from saguaro_tpu_torch.kernels.colocalization import _xla_cumsum, colocalization_features_multiset
 from saguaro_tpu_torch.kernels.fused_measure import fused_object_features
 from saguaro_tpu_torch.kernels.glcm import (
     HARALICK_NAMES,
@@ -60,6 +61,7 @@ from saguaro_tpu_torch.kernels.thresholding import (
     global_threshold,
     smooth_for_binarize,
 )
+from saguaro_tpu_torch.kernels.onehot_reduce import onehot_counts
 from saguaro_tpu_torch.kernels.zernike import ZERNIKE_INDEXES
 from saguaro_tpu_torch.parallel.mesh import Mesh, shard_batch
 
@@ -70,6 +72,7 @@ __all__ = [
     "measure_site_batch_dispatch",
     "measure_site_batch_finalize",
     "MeasureHandle",
+    "otsu_threshold",
 ]
 
 
@@ -145,6 +148,33 @@ class FeatureConfig:
             raise ValueError(
                 "pallas_dispatch has no meaning here: kernels dispatch by tensor device"
             )
+
+
+def otsu_threshold(image: torch.Tensor, nbins: int = 256) -> torch.Tensor:
+    """Otsu's threshold of each whole image over a ``nbins``-bin histogram
+    spanning the image's min to max (CP's default global two-class Otsu):
+    image (B, ...) -> (B,) f32, the centre of the bin that maximises the
+    between-class variance. The histogram is one per-label count with the
+    bin as the label (K1 on CUDA). The bin centres, the cumulative sums and
+    the variance's numerator round as the reference's program rounds them
+    (fused multiply-adds, XLA's blocked cumsum), so the chosen bin is the
+    reference's."""
+    b = image.shape[0]
+    img = image.reshape(b, -1).float()
+    n = img.shape[1]
+    lo = img.amin(dim=1, keepdim=True)
+    span = torch.clamp(img.amax(dim=1, keepdim=True) - lo, min=1e-12)
+    q = torch.clamp((img - lo) / span * nbins, 0, nbins - 1).to(torch.int32)
+    zeros = torch.zeros_like(q)
+    (hist,) = onehot_counts(q, [(zeros, torch.ones_like(q, dtype=torch.bool), 1)], nbins)
+    w = hist[..., 0] / float(n)
+    k = (torch.arange(nbins, dtype=torch.float32, device=img.device) + 0.5) / nbins
+    centers = sc.fma32(k.expand(b, -1), span, lo)
+    omega = _xla_cumsum(w)
+    mu = _xla_cumsum(w * centers)
+    d = sc.fma32(mu[:, -1:].expand_as(omega), omega, -mu)
+    sigma_b = d * d / torch.clamp(omega * (1.0 - omega), min=1e-12)
+    return torch.gather(centers, 1, torch.argmax(sigma_b, dim=1, keepdim=True))[:, 0]
 
 
 def _percentiles(x: torch.Tensor, qs: list[float]) -> list[torch.Tensor]:

@@ -160,3 +160,15 @@ def test_seeded_init_is_deterministic():
     sa, sb, sc_ = a.state_dict(), b.state_dict(), c.state_dict()
     key = "downsample.down.res_down_0.conv.conv_0.2.weight"
     assert torch.equal(sa[key], sb[key]) and not torch.equal(sa[key], sc_[key])
+
+
+def test_segment_tiles_matches_flax(nets):
+    """The network over a batch of tiles, the module in place of the
+    reference's (apply_fn, variables): 1e-4, as the network itself."""
+    model, variables, _, net, _ = nets
+    tiles = np.random.default_rng(5).normal(size=(3, 64, 64, 2)).astype(np.float32)
+    with jax.default_matmul_precision("highest"):
+        want = np.asarray(ref.segment_tiles(model.apply, variables, jnp.asarray(tiles)))
+    got = port.segment_tiles(net, torch.from_numpy(tiles))
+    assert got.dtype == torch.float32 and got.shape == (3, 64, 64, 3)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-4 * np.abs(want).max())

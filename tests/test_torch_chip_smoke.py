@@ -5,7 +5,9 @@ resume), its profile phase (on the grid's CSVs and a 24-well plate), its
 TIFF phase, its single-site phase (engine segment, Euler recovery held
 against the ground truth and the CPU) and its pixel path (max projection
 -> re-binning -> illumination estimate -> QC) rehearse on the CPU at a
-small size through the plain forms; and ``--profile``'s reading of a
+small size through the plain forms, as do the later phases (fine Costes,
+the oracles, granularity, the mesh and the per-family measurement API);
+and ``--profile``'s reading of a
 trace by ``measure/<family>`` range holds on synthetic events."""
 
 import importlib.util
@@ -395,3 +397,23 @@ def test_shard_launch_check_names_the_idle_shard(smoke):
         smoke.check_shard_launches([a, dict(a)], {"seg_counts": 147, "seg_pick2": 2}, 2, [])
     with pytest.raises(AssertionError, match="1 shards, not 2"):
         smoke.check_shard_launches([a], {"seg_counts": 49, "seg_pick2": 1}, 2, [])
+
+
+def test_family_api_rehearsal_on_cpu(smoke, monkeypatch):
+    """The family-API phase at 96² (64² corners) through the plain forms
+    (FamilyInputs wraps them here): every per-family function run alone,
+    K1, K2, K3 and K6 reached at their call sites, held against the fused
+    measurement and card (here the CPU) against the CPU."""
+    monkeypatch.setattr(smoke, "FAMILY_WRAPPED", {
+        "seg_counts": "counts_plain", "seg_take_t": "take_t_plain", "seg_sums": "sums_plain",
+        "seg_pick2": "pick2_plain"})
+    images, gt = smoke.synthetic_sites(2, 96, seed=3)
+    got, runs = smoke.run_family_api(images, gt, "cpu", corner=64)
+    assert set(got["launches"]) == set(runs) and len(runs) == 14
+    assert got["launches"]["object_glcm"]["seg_counts"] >= 1
+    assert got["launches"]["dense_rank_images"]["seg_pick2"] == 1
+    assert got["launches"]["otsu_threshold"] == {"seg_counts": 1}
+    assert got["launches"]["zernike_features"]["seg_sums"] == 2
+    assert max(got["cpu_worst_of_tol"].values()) == 0.0  # the CPU against itself
+    assert set(got["worst_of_tol"]) == {"intensity", "shape", "zernike", "corr", "edge", "radial"}
+    assert all(v <= 1.0 for v in got["worst_of_tol"].values())

@@ -2,7 +2,7 @@
 on the CPU) against the reference, per site of a batch.
 
 * dense ranks, rank tables and distinct-value counts: exact (integer
-  counts and cumsums);
+  counts and cumsums), built by hand and by ``dense_rank_images``;
 * Costes thresholds: the first channel's threshold (the stopping grid
   step) exact: the Pearson statistic of each step comes from exact joint
   counts and its sign decides the stop (both packages evaluate it in the
@@ -53,6 +53,28 @@ def test_dense_ranks_exact(sites):
         r_ref, nd_ref = ref.dense_rank_images(jnp.asarray(codes[s]), jnp.asarray(inside[s]))
         np.testing.assert_array_equal(ranks[s].numpy(), np.asarray(r_ref))
         np.testing.assert_array_equal(torch.stack(nds, 1)[s].numpy(), np.asarray(nd_ref))
+
+
+@pytest.mark.parametrize("mask", ["objects", "ring", "16-bit codes"])
+def test_dense_rank_images_exact(sites, mask):
+    """The reference's ``dense_rank_images`` as one call: ranks of every
+    pixel and distinct values per channel, exactly, over the objects, a
+    ring of cytoplasm, and codes spread over the whole 16-bit range."""
+    img, lab, cyto = sites
+    b, h, w, n_ch = img.shape
+    codes = img.reshape(b, -1, n_ch).astype(np.int32)
+    inside = lab.reshape(b, -1) > 0
+    if mask == "ring":
+        inside = cyto.reshape(b, -1) > 0
+    elif mask == "16-bit codes":
+        codes = np.random.default_rng(4).integers(0, 65536, codes.shape).astype(np.int32)
+    ranks, n_distinct = port.dense_rank_images(torch.from_numpy(codes), torch.from_numpy(inside))
+    assert ranks.shape == codes.shape and n_distinct.shape == (b, n_ch)
+    for s in range(b):
+        r_ref, nd_ref = ref.dense_rank_images(jnp.asarray(codes[s]), jnp.asarray(inside[s]))
+        np.testing.assert_array_equal(ranks[s].numpy(), np.asarray(r_ref))
+        np.testing.assert_array_equal(n_distinct[s].numpy(), np.asarray(nd_ref))
+    assert float(n_distinct.min()) > 1
 
 
 @pytest.mark.parametrize("scale,fast", [(255, True), (255, False), (63, True)])

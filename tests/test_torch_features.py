@@ -8,7 +8,8 @@ neighbour, colocalization and radial families off.
 
 The reference measures a batch under ``vmap``; at adaptive scope that
 program does not run on XLA:CPU (its batched bf16 gather product has no CPU
-kernel), so that case takes the reference's single-site ``measure_site``."""
+kernel), so that case takes the reference's single-site ``measure_site``.
+``otsu_threshold`` (the whole-image Otsu) equals the reference's exactly."""
 
 import numpy as np
 import pytest
@@ -102,3 +103,22 @@ def test_default_config_matches_reference(batch, case):
         assert_tables_close(r, g, H, W)
         assert any(c.startswith("Texture_") for c in g["Cells"].columns)
         assert "Metadata_BoundaryCompactionOverflow_Cells" in g["Image"].columns
+
+
+@pytest.mark.parametrize("case", ["blob channels", "gamma", "flat"])
+def test_otsu_threshold_matches_reference(batch, case):
+    """The whole-image 256-bin Otsu (not the masked one of the threshold
+    module): the same bin, so the same threshold, exactly."""
+    from saguaro_tpu.pipeline.features import otsu_threshold as ref_otsu
+    from saguaro_tpu_torch.pipeline.features import otsu_threshold
+
+    img, _ = batch
+    if case == "blob channels":
+        x = np.moveaxis(img, -1, 1).reshape(-1, H, W).astype(np.float32)
+    elif case == "gamma":
+        x = np.random.default_rng(6).gamma(2.0, 300.0, (6, 37, 41)).astype(np.float32)
+    else:
+        x = np.full((2, 9, 11), 7.0, np.float32)
+    got = otsu_threshold(torch.from_numpy(x)).numpy()
+    want = np.array([np.asarray(ref_otsu(x[i])) for i in range(len(x))])
+    np.testing.assert_array_equal(got, want)

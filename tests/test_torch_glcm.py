@@ -1,7 +1,9 @@
 """Texture: the port (plain forms on the CPU) against the reference.
 Grey levels and the co-occurrence counts are exact, so the normalized GLCMs
 are bit-equal; the 13 Haralick statistics are closed forms over them,
-equal to 1e-5 relative + 1e-6 (summation order of their reductions)."""
+equal to 1e-5 relative + 1e-6 (summation order of their reductions). The
+one-channel ``object_glcm`` (own ranges, given stats, given grey levels)
+and the plain ``object_glcm_scatter`` are bit-equal to the reference's."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -60,3 +62,47 @@ def test_glcm_and_haralick(sites, levels, distance):
         for k in ref.HARALICK_NAMES:
             np.testing.assert_allclose(har[k][s].numpy(), np.asarray(har_ref[k]),
                                        rtol=1e-5, atol=1e-6, err_msg=k)
+
+
+# --------------------------------------------------------------------------
+# The one-channel forms: object_glcm (the fused histogram) with its own
+# ranges, with given stats and with given grey levels, and the plain
+# scatter form; normalized GLCMs bit-equal to the reference's
+
+
+def _site_args(img, lab, s, c=0):
+    return jnp.asarray(img[s, ..., c]), jnp.asarray(lab[s])
+
+
+@pytest.mark.parametrize("mode", ["own ranges", "stats", "quantized"])
+def test_object_glcm_matches_reference(sites, mode):
+    img, lab, vmin, vrange = sites
+    b = len(lab)
+    kw_port, kw_ref = {}, [{} for _ in range(b)]
+    if mode == "stats":
+        vmax = vmin + vrange
+        kw_port["stats"] = (torch.from_numpy(vmin[..., 1]), torch.from_numpy(vmax[..., 1]))
+        kw_ref = [{"stats": (jnp.asarray(vmin[s, :, 1]), jnp.asarray(vmax[s, :, 1]))} for s in range(b)]
+    elif mode == "quantized":
+        q = np.random.default_rng(2).integers(0, 16, lab.shape).astype(np.int32)
+        kw_port["quantized"] = torch.from_numpy(q)
+        kw_ref = [{"quantized": jnp.asarray(q[s])} for s in range(b)]
+    got = port.object_glcm(torch.from_numpy(img[..., 1]), torch.from_numpy(lab), MC, 16, 3, **kw_port)
+    assert got.shape == (b, 4, MC, 16, 16)
+    for s in range(b):
+        want = ref.object_glcm(*_site_args(img, lab, s, 1), MC, 16, 3, **kw_ref[s])
+        np.testing.assert_array_equal(got[s].numpy(), np.asarray(want))
+    assert got.sum() > 0
+
+
+@pytest.mark.parametrize("levels,distance", [(16, 3), (8, 1)])
+def test_object_glcm_scatter_matches_reference(sites, levels, distance):
+    img, lab, _, _ = sites
+    got = port.object_glcm_scatter(torch.from_numpy(img[..., 0]), torch.from_numpy(lab), MC,
+                                   levels, distance)
+    for s in range(len(lab)):
+        want = ref.object_glcm_scatter(*_site_args(img, lab, s), MC, levels, distance)
+        np.testing.assert_array_equal(got[s].numpy(), np.asarray(want))
+    fused = port.object_glcm(torch.from_numpy(img[..., 0]), torch.from_numpy(lab), MC, levels,
+                             distance)
+    np.testing.assert_array_equal(got.numpy(), fused.numpy())

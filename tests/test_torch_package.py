@@ -2,10 +2,13 @@
 reference package, its entry points refuse to fall back to the CPU, its
 CUDA wrappers refuse CPU tensors, every family of the default config is
 measured, and so are the second-level Costes descent and the CLI's
-device mesh."""
+device mesh; and every public name of a reference module has a counterpart
+of that name in the port's mirrored module (or an exemption with its
+reason), and the four package surfaces export the reference's names."""
 
 import ast
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -430,3 +433,120 @@ def test_share_cpu_threads_divides_the_cores(monkeypatch):
         assert torch.get_num_threads() == 3
     finally:
         torch.set_num_threads(before)
+
+
+# --------------------------------------------------------------------------
+# The public surface: every public name of a reference module has a
+# counterpart of that name in the port's mirrored module
+
+REF = ROOT / "saguaro_tpu"
+PORT = ROOT / "saguaro_tpu_torch"
+# the two Pallas files map to the port's CUDA wrappers
+MIRROR = {"kernels/segment_pallas.py": "kernels/segment_cuda.py",
+          "kernels/resample_pallas.py": "kernels/resample_cuda.py"}
+_PALLAS_FN = "the Pallas kernel; its hand-written CUDA counterpart is the port's {}"
+_DISPATCH = "the TPU's Pallas dispatch switch; in the port the tensor's device picks the kernel"
+# (reference module, name): why the port has no counterpart of that name
+EXEMPT = {
+    ("kernels/segment_pallas.py", "use_pallas"): _DISPATCH,
+    ("kernels/segment_pallas.py", "dispatch_override"): _DISPATCH,
+    ("kernels/segment_pallas.py", "seg_counts_pallas"): _PALLAS_FN.format("seg_counts"),
+    ("kernels/segment_pallas.py", "seg_take_t_pallas"): _PALLAS_FN.format("seg_take_t"),
+    ("kernels/segment_pallas.py", "seg_sums_pallas"): _PALLAS_FN.format("seg_sums"),
+    ("kernels/segment_pallas.py", "seg_lane_sums_pallas"): _PALLAS_FN.format("seg_lane_sums_a"),
+    ("kernels/segment_pallas.py", "pick2_pallas"): _PALLAS_FN.format("seg_pick2"),
+    ("kernels/resample_pallas.py", "lanczos_resize_pallas"): _PALLAS_FN.format("lanczos_resize_cuda"),
+    ("kernels/resample_pallas.py", "lanczos_resize_batch_pallas"):
+        _PALLAS_FN.format("lanczos_resize_cuda"),
+    ("io/fast_tiff.py", "available"): "the probe for the reference's silent fallback to imageio, "
+                                      "which the port refuses: a failed native build raises",
+}
+_COUNTERPART = re.compile(r"the port's (\w+)$")
+
+
+def _public_names(tree: ast.Module) -> list[str]:
+    """The module's ``__all__``, else its top-level functions and classes
+    without a leading underscore."""
+    for node in tree.body:
+        if isinstance(node, ast.Assign) and any(
+                isinstance(t, ast.Name) and t.id == "__all__" for t in node.targets):
+            return [ast.literal_eval(e) for e in node.value.elts]
+    return [n.name for n in tree.body
+            if isinstance(n, (ast.FunctionDef, ast.AsyncFunctionDef, ast.ClassDef))
+            and not n.name.startswith("_")]
+
+
+def _defined_names(tree: ast.Module) -> set[str]:
+    """Every name bound at the module's top level."""
+    names = set()
+    for node in tree.body:
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef, ast.ClassDef)):
+            names.add(node.name)
+        elif isinstance(node, ast.Assign):
+            names.update(t.id for t in node.targets if isinstance(t, ast.Name))
+        elif isinstance(node, ast.AnnAssign) and isinstance(node.target, ast.Name):
+            names.add(node.target.id)
+        elif isinstance(node, (ast.Import, ast.ImportFrom)):
+            names.update(a.asname or a.name.split(".")[0] for a in node.names)
+    return names
+
+
+def _ref_modules() -> list[str]:
+    return [str(p.relative_to(REF)) for p in sorted(REF.rglob("*.py"))]
+
+
+@pytest.mark.parametrize("rel", _ref_modules())
+def test_every_public_name_has_a_port_counterpart(rel):
+    """Parsed with ``ast``, so no JAX program is built: each public name of
+    the reference module is bound in the port's mirrored module, or stands
+    in EXEMPT with its reason."""
+    ref = _public_names(ast.parse((REF / rel).read_text()))
+    port = PORT / MIRROR.get(rel, rel)
+    assert port.exists(), f"the port has no module for {rel}"
+    defined = _defined_names(ast.parse(port.read_text()))
+    missing = [n for n in ref if n not in defined and (rel, n) not in EXEMPT]
+    assert not missing, f"{rel}: no counterpart in {port.relative_to(ROOT)} for {missing}"
+
+
+def test_exemptions_name_only_missing_public_names():
+    """Each exemption is a public name of its reference module that the port
+    does not bind, and a Pallas function's named CUDA counterpart exists."""
+    for (rel, name), why in EXEMPT.items():
+        assert name in _public_names(ast.parse((REF / rel).read_text())), (rel, name)
+        port = PORT / MIRROR.get(rel, rel)
+        defined = _defined_names(ast.parse(port.read_text()))
+        assert name not in defined, (rel, name)
+        m = _COUNTERPART.search(why)
+        if m:
+            assert m.group(1) in defined, (rel, name, m.group(1))
+
+
+@pytest.mark.parametrize("package", ["kernels", "models", "io", "utils"])
+def test_package_exports_the_reference_names(package):
+    """Every name the reference's package ``__init__`` exports imports from
+    the port's package, and the two ``__all__`` hold the same names."""
+    import importlib
+
+    ref = _public_names(ast.parse((REF / package / "__init__.py").read_text()))
+    assert ref
+    mod = importlib.import_module(f"saguaro_tpu_torch.{package}")
+    for name in ref:
+        assert getattr(mod, name, None) is not None, f"saguaro_tpu_torch.{package}.{name}"
+    assert sorted(mod.__all__) == sorted(ref)
+
+
+def test_package_surfaces_import_no_jax_and_build_nothing():
+    """Importing the four packages imports no JAX and builds no CUDA source
+    (the kernels build at their first launch)."""
+    code = (
+        "import sys\n"
+        "import saguaro_tpu_torch.kernels, saguaro_tpu_torch.models\n"
+        "import saguaro_tpu_torch.io, saguaro_tpu_torch.utils\n"
+        "from saguaro_tpu_torch.kernels import segment_cuda as sc\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'saguaro_tpu')]\n"
+        "sys.exit(1 if bad or sc._LIB is not None else 0)\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True,
+                         text=True)
+    assert res.returncode == 0, res.stdout + res.stderr

@@ -4,7 +4,9 @@ projections exact; ``illum_correct`` 1e-6 relative (one f32 division
 each); ``estimate_illumination`` 1e-5 relative (f32 plate means and
 convolutions summed in another order); the QC slope 1e-4 relative (the FFT
 and the ring sums differ in the last bits between XLA and PyTorch, and the
-slope is a log-log regression of those sums); PercentMaximal exactly."""
+slope is a log-log regression of those sums); PercentMaximal exactly;
+``radial_power_spectrum``'s ring sums 1e-5 relative + 1e-6 of the largest
+ring, its radii exactly."""
 
 import numpy as np
 import pytest
@@ -17,6 +19,7 @@ from saguaro_tpu.kernels.maxproj import max_project_batch as ref_max_project_bat
 from saguaro_tpu.kernels.qc import _radius_labels as ref_radius_labels
 from saguaro_tpu.kernels.qc import qc_metrics as ref_qc
 from saguaro_tpu.kernels.qc import qc_metrics_batch as ref_qc_batch
+from saguaro_tpu.kernels.qc import radial_power_spectrum as ref_rps
 from saguaro_tpu_torch.kernels import illum, maxproj, qc
 
 from .torch_data import share_cpu_threads
@@ -118,3 +121,30 @@ def test_radius_labels_match_reference():
         a, la = qc._radius_labels(shape)
         b, lb = ref_radius_labels(shape)
         assert la == lb and np.array_equal(a, b)
+
+
+@pytest.mark.parametrize("name", ["structured", "noisy", "flat", "saturated"])
+def test_radial_power_spectrum(name):
+    """centrosome ``rps``'s triple: the radii exactly, the ring sums of the
+    FFT's magnitude and power to 1e-5 relative + 1e-6 of the largest ring
+    (the FFTs differ in their last bits)."""
+    img = _qc_images()[name]
+    radii, mag, power = qc.radial_power_spectrum(torch.from_numpy(img))
+    r_ref, m_ref, p_ref = ref_rps(img)
+    np.testing.assert_array_equal(radii, np.asarray(r_ref))
+    for got, want in ((mag, m_ref), (power, p_ref)):
+        want = np.asarray(want, np.float64)
+        assert got.shape == want.shape
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-6 * np.abs(want).max())
+    # a batch gives the same sums image by image
+    _, mag_b, power_b = qc.radial_power_spectrum(torch.from_numpy(np.stack([img, img])))
+    assert torch.equal(mag_b[1], mag) and torch.equal(power_b[0], power)
+
+
+def test_radial_power_spectrum_small_image():
+    img = np.random.default_rng(3).integers(0, 1000, (16, 20)).astype(np.uint16)
+    radii, mag, power = qc.radial_power_spectrum(torch.from_numpy(img))
+    r_ref, m_ref, p_ref = (np.asarray(a) for a in ref_rps(img))
+    np.testing.assert_array_equal(radii, r_ref)
+    np.testing.assert_array_equal(mag.numpy(), m_ref)
+    np.testing.assert_array_equal(power.numpy(), p_ref)

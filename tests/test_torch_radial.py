@@ -1,10 +1,15 @@
-"""CP radial-distribution geometry: the port's centre race (the 1-step
-8-neighbour sweep, plain PyTorch) against the reference's sweep race and
-its default min-plus scan race, and the packed ring/wedge code against the
-reference's ``cp_ring_wedge`` (which runs the scan race). Distances agree
-to 1e-4 (the two races add the same steps in other orders), winners and
-ring/wedge codes exactly."""
+"""CP radial-distribution geometry: the port's two centre races against the
+reference's, and the packed ring/wedge code against the reference's
+``cp_ring_wedge``, exactly. Both packages' ``cp_ring_wedge`` run the
+min-plus scan race (``center_race_scan``), which the port holds bit for bit
+to the reference's (distances and winners) on blob sites, a spiral and
+mirror-symmetric touching pairs (exact ties), and its associative scan
+bit for bit to ``jax.lax.associative_scan``. The 1-step sweep race
+(``center_race``) is bit-equal to the reference's sweep; the two forms add
+the same steps in other orders, so against the scan race its distances
+agree to 1e-4."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -74,3 +79,98 @@ def test_cp_ring_wedge_with_shared_edt_and_radius(labels):
     rmax = radius_features(lab, MC, 64, d2_img=d2)["MaximumRadius"]
     got = port.cp_ring_wedge(lab, MC, 4, 64, d2_img=d2, max_d2=rmax * rmax)
     assert torch.equal(got, port.cp_ring_wedge(lab, MC, 4, 64))
+
+
+# --------------------------------------------------------------------------
+# The min-plus scan race, bit for bit
+
+
+def _spiral():
+    """tests/test_radial_cp.py's spiral: the most path bends, the scan
+    race's worst case."""
+    lab = np.zeros((1, 64, 64), np.int32)
+    yy, xx = np.mgrid[:64, :64]
+    th = np.arctan2(yy - 32, xx - 32)
+    r = np.hypot(yy - 32, xx - 32)
+    m = np.abs(r - (th + np.pi) * 4.0) < 2.5
+    m |= np.abs(r - (th + 3 * np.pi) * 4.0) < 2.5
+    lab[0][m & (r < 30)] = 1
+    return lab
+
+
+def _mirror_pairs():
+    """Touching pairs of objects, each the mirror image of its partner about
+    a pixel column (or row) held by the first, with mirrored seeds: the
+    pixels on the axis are reached from both centres at exactly equal
+    distances (the own-label tie rule decides them)."""
+    lab = np.zeros((2, 41, 63), np.int32)
+    yy, xx = np.mgrid[:41, :63]
+    # site 0: ellipses mirrored about x = 31
+    left = ((yy - 20) / 14.0) ** 2 + ((xx - 22) / 11.0) ** 2 <= 1.0
+    lab[0][left & (xx <= 31)] = 1
+    lab[0][np.fliplr(left) & (xx > 31)] = 2
+    # site 1: diamonds mirrored about y = 20, and a lone disk
+    top = np.abs(yy - 11) + np.abs(xx - 20) <= 10
+    lab[1][top & (yy <= 20)] = 3
+    lab[1][np.flipud(top) & (yy > 20)] = 4
+    lab[1][np.hypot(yy - 20, xx - 50) <= 8] = 5
+    return lab
+
+
+def _race_cases():
+    _, blobs = blob_sites(n_sites=2, h=56, w=64, n_ch=1, n_cells=12, seed=21)
+    mirror = _mirror_pairs()
+    seeds = np.zeros_like(mirror)
+    seeds[0, 20, 24], seeds[0, 20, 38] = 1, 2
+    seeds[1, 12, 20], seeds[1, 28, 20] = 3, 4
+    seeds[1, 20, 50] = 5
+    return {"blobs": (blobs, _seeds(blobs)), "spiral": (_spiral(), _seeds(_spiral())),
+            "mirror pairs": (mirror, seeds)}
+
+
+@pytest.mark.parametrize("case", ["blobs", "spiral", "mirror pairs"])
+@pytest.mark.parametrize("lam", [1.0, 0.25])
+def test_center_race_scan_bit_equal(case, lam):
+    lab, seeds = _race_cases()[case]
+    d, won = (a.numpy() for a in port.center_race_scan(torch.from_numpy(lab),
+                                                        torch.from_numpy(seeds), lam))
+    for s in range(len(lab)):
+        d_ref, w_ref = map(np.asarray, ref.center_race_scan(jnp.asarray(lab[s]),
+                                                            jnp.asarray(seeds[s]), lam))
+        np.testing.assert_array_equal(d[s], d_ref)
+        np.testing.assert_array_equal(won[s], w_ref)
+    inside = lab > 0
+    assert (won[inside] > 0).all() and (d[~inside] == np.float32(port._BIG)).all()
+
+
+@pytest.mark.parametrize("reverse", [False, True], ids=["forward", "reverse"])
+@pytest.mark.parametrize("n", [1, 2, 3, 1080, 1081])
+def test_minplus_scan_bit_equal_to_associative_scan(n, reverse):
+    """Seeded f32 (c, k, w) triples, some steps blocked (3.4e38), along the
+    last of three axes and along the first."""
+    rng = np.random.default_rng(n)
+    c = rng.uniform(0.0, 200.0, (3, n)).astype(np.float32)
+    c[rng.random((3, n)) < 0.2] = np.float32(port._BIG)
+    k = rng.uniform(0.1, 1.5, (3, n)).astype(np.float32)
+    k[rng.random((3, n)) < 0.1] = np.float32(port._BIG)
+    w = rng.integers(0, 9, (3, n)).astype(np.int32)
+    for axis, tr in ((1, lambda a: a), (0, lambda a: np.ascontiguousarray(a.T))):
+        c_w = port.minplus_scan(*(torch.from_numpy(tr(a)) for a in (c, k, w)), axis, reverse=reverse)
+        args = [tr(a) for a in (c, k, w)]
+        scan = jax.jit(lambda e, axis=axis: jax.lax.associative_scan(
+            ref._minplus_combine, e, axis=axis, reverse=reverse))
+        want = scan(tuple(map(jnp.asarray, args)))
+        got = port.minplus_scan(*map(torch.from_numpy, args), axis, reverse=reverse, with_k=True)
+        for g, wt in zip(got, want):
+            np.testing.assert_array_equal(g.numpy(), np.asarray(wt))
+        # without k the race's outputs are the same
+        for g, wt in zip(c_w, (want[0], want[2])):
+            np.testing.assert_array_equal(g.numpy(), np.asarray(wt))
+
+
+def test_cp_ring_wedge_runs_the_scan_race(labels, monkeypatch):
+    calls = []
+    real = port.center_race_scan
+    monkeypatch.setattr(port, "center_race_scan", lambda *a, **k: calls.append(1) or real(*a, **k))
+    port.cp_ring_wedge(torch.from_numpy(labels), MC, 4, 64)
+    assert calls == [1]
