@@ -3315,8 +3315,8 @@ def profile_stages(images, gt_labels, dev, top: int = 20) -> None:
             torch.cuda.synchronize()
             traced = time.perf_counter() - t0
         events = prof.key_averages()
-        # the measure/<family> ranges appear twice: as host events and as
-        # device-timeline annotations, which are not kernels
+        # the measure/<family> ranges are host events; a range kept on the
+        # device timeline (a record_function annotation) is no kernel
         spans = [e for e in events if e.key.startswith("measure/")]
         kernels = [e for e in events
                    if e.device_type == DeviceType.CUDA and not e.key.startswith("measure/")]
@@ -3336,9 +3336,10 @@ def profile_stages(images, gt_labels, dev, top: int = 20) -> None:
         # the measure stage's family ranges: host time (inclusive of the
         # syncs inside), device time and count of the kernels launched
         # within, PyTorch's and the port's apart (each kernel once, through
-        # the op its launch is linked to), and the range's extent on the
-        # device timeline
-        extent = {e.key: e.device_time_total for e in spans if e.device_type == DeviceType.CUDA}
+        # the op its launch is linked to). The ranges are ops
+        # (utils.timing.span), which leave no annotation on the device
+        # timeline: a family's device extent is the program's recorder's
+        # to read (tools/recorder_window.py)
         host = [e for e in spans if e.device_type == DeviceType.CPU]
         by_range, port_all, port_inside = trace_ranges(prof)
         if name == "measure":
@@ -3350,8 +3351,7 @@ def profile_stages(images, gt_labels, dev, top: int = 20) -> None:
             us_t, n_t, us_p, n_p = by_range.get(e.key, (0.0, 0, 0.0, 0))
             log(f"  range {e.key:24s} {e.count:3d} calls  {e.cpu_time_total / 1e3:10.3f} ms host  "
                 f"{(us_t + us_p) / 1e3:10.3f} ms kernels ({us_t / 1e3:.3f} PyTorch's, "
-                f"{us_p / 1e3:.3f} the port's in {n_p} launches)  "
-                f"{extent.get(e.key, 0.0) / 1e3:10.3f} ms device extent  {n_t + n_p:7d} launches")
+                f"{us_p / 1e3:.3f} the port's in {n_p} launches)  {n_t + n_p:7d} launches")
         if name == "measure" and port_inside != port_all:
             raise AssertionError("the profiler puts some of the port's kernels outside the "
                                  "measure/<family> ranges")

@@ -40,6 +40,7 @@ import torch
 from saguaro_tpu_torch.kernels import segment_cuda as sc
 from saguaro_tpu_torch.kernels.onehot_reduce import onehot_counts, segment_matmul_sums
 from saguaro_tpu_torch.kernels.segment_cuda import _pairs
+from saguaro_tpu_torch.utils import timing
 
 __all__ = [
     "dense_rank_images",
@@ -262,8 +263,8 @@ def costes_thresholds(
     cost = torch.where(den > 0, num / den, torch.full_like(num, float("nan")))
 
     # CP's descent, per site and pair, on the host over the evaluated steps
-    cost_h, n_h = cost.cpu().numpy(), n.cpu().numpy()
-    reg_h, mx_h = reg.cpu().numpy(), mx.cpu().numpy()
+    cost_h, n_h = timing.fetch(cost, "costes"), timing.fetch(n, "costes")
+    reg_h, mx_h = timing.fetch(reg, "costes"), timing.fetch(mx, "costes")
     f32 = np.float32
     thr_k = np.zeros((b, n_pairs), np.float32)
     prev_k = np.zeros((b, n_pairs), np.float32)
@@ -412,9 +413,9 @@ def costes_fine_refine(
     vals_f = codes_f * float(i_f)
     vmax = torch.where(inside[..., None], vals_f, torch.full_like(vals_f, -_BIG)).amax(dim=1)
 
-    reg_h = regs.detach().cpu().numpy().astype(f32)
-    prev_h = prev_k.detach().cpu().numpy().astype(f32)
-    vmax_h = vmax.cpu().numpy()
+    reg_h = timing.fetch(regs.detach(), "costes_fine").astype(f32)
+    prev_h = timing.fetch(prev_k.detach(), "costes_fine").astype(f32)
+    vmax_h = timing.fetch(vmax, "costes_fine")
     k0 = np.zeros((b, n_pairs), f32)
     k_hi = np.zeros((b, n_pairs), f32)
     for s in range(b):
@@ -470,15 +471,15 @@ def costes_fine_refine(
         del va, vb
         enter_sums[:, ps] = segment_matmul_sums(enter.reshape(bp, n), lanes, m_cand + 1).reshape(
             b, len(ps), m_cand + 1, 6)
-        if bool((~pos).any()):
+        if timing.flag(~pos, "costes_fine.sign"):
             exit_sums[:, ps] = segment_matmul_sums(exit_.reshape(bp, n), lanes, m_cand + 1).reshape(
                 b, len(ps), m_cand + 1, 6)
         del enter, exit_, lanes
 
     # moments of the pixels below each candidate, their Pearson, and CP's
     # walk, on the host
-    ent = enter_sums.cpu().numpy().astype(np.float64)
-    ext = exit_sums.cpu().numpy().astype(np.float64)
+    ent = timing.fetch(enter_sums, "costes_fine").astype(np.float64)
+    ext = timing.fetch(exit_sums, "costes_fine").astype(np.float64)
     # entered after t: the suffix from t + 1 (the last bin included)
     later = np.cumsum(ent[:, :, ::-1], axis=2)[:, :, ::-1][:, :, 1:]
     below = later + np.cumsum(ext[:, :, :m_cand], axis=2)          # (B, P, M, 6)

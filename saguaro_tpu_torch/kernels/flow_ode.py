@@ -24,6 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from saguaro_tpu_torch.device import resolve_device
+from saguaro_tpu_torch.utils import timing
 
 __all__ = [
     "follow_flows",
@@ -222,7 +223,7 @@ def compute_masks_batch(
         pos = follow_flows_pointer(f, active, n_doublings)
     else:
         pos = follow_flows(f, active, n_iters)
-    labels = masks_from_flows(pos, active, seed_threshold, 5).cpu().numpy()
+    labels = timing.fetch(masks_from_flows(pos, active, seed_threshold, 5), "masks")
     return [relabel_consecutive(lab, min_size=min_size) for lab in labels]
 
 

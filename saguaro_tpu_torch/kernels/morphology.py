@@ -25,6 +25,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from saguaro_tpu_torch.utils import timing
+
 __all__ = [
     "expand_labels",
     "propagate_labels",
@@ -120,6 +122,7 @@ def propagate_labels(
     if iterations is not None:
         for _ in range(iterations):
             dist, lab = step(dist, lab)
+        timing.count("rounds/propagate", iterations)
         return lab
     cap = labels.shape[-2] * labels.shape[-1]
     it = 0
@@ -128,7 +131,8 @@ def propagate_labels(
         for _ in range(check_every):
             dist, lab = step(dist, lab)
         it += check_every
-        if not bool((dist < prev).any()):
+        timing.count("rounds/propagate", check_every)
+        if not timing.flag(dist < prev, "propagate"):
             break
     return lab
 
@@ -187,13 +191,16 @@ def _cross(x: torch.Tensor, op: str) -> torch.Tensor:
 def _reconstruct_cross_unit(seed: torch.Tensor, ceiling: torch.Tensor, check_every: int = 32):
     """Grayscale reconstruction by dilation, disk(1) footprint: blocked unit
     dilations r <- min(dilate(r), ceiling) until a block of ``check_every``
-    sweeps changes nothing (the fixpoint is unique)."""
+    sweeps changes nothing (the fixpoint is unique). Counts its sweeps
+    under ``rounds/reconstruct`` and its reads under ``waits/reconstruct``
+    (``utils.timing``)."""
     r = seed
     while True:
         prev = r
         for _ in range(check_every):
             r = torch.minimum(_cross(r, "max"), ceiling)
-        if not bool((r > prev).any()):
+        timing.count("rounds/reconstruct", check_every)
+        if not timing.flag(r > prev, "reconstruct"):
             return r
 
 

@@ -32,6 +32,7 @@ import torch
 from saguaro_tpu_torch.kernels.morphology import _shift
 from saguaro_tpu_torch.kernels.onehot_reduce import mxu_take_t
 from saguaro_tpu_torch.kernels.segment_reduce import _flat
+from saguaro_tpu_torch.utils import timing
 
 __all__ = ["center_race", "center_race_scan", "cp_ring_wedge"]
 
@@ -81,9 +82,9 @@ def _sweep(dist, won, lab, grow, steps, eps):
     return torch.where(grow, best_d, dist), torch.where(grow, best_w, won)
 
 
-def _changed(dist, won, d0, w0) -> bool:
+def _changed(dist, won, d0, w0) -> torch.Tensor:
     # own-label tie flips move won without improving dist: watch both
-    return bool((dist < d0).any() | (won != w0).any())
+    return (dist < d0).any() | (won != w0).any()
 
 
 def center_race(
@@ -110,7 +111,8 @@ def center_race(
         for _ in range(check_every):
             dist, won = _sweep(dist, won, lab, grow, steps, eps)
         it += check_every
-        if not _changed(dist, won, d0, w0):
+        timing.count("rounds/center_race", check_every)
+        if not timing.flag(_changed(dist, won, d0, w0), "center_race"):
             break
     return dist, won
 
@@ -237,9 +239,11 @@ def center_race_scan(
     both ways) until a round changes no distance and no winner, then
     1-step sweeps until one changes nothing (they settle the own-label ties
     that the scans break label-blind). Each loop reads one flag back to the
-    host a round or sweep; a batch runs until every site has converged, and
-    a converged site's further rounds leave it as it is, so every site
-    equals the reference's, bit for bit."""
+    host a round or sweep, counted under ``rounds/`` and ``waits/`` of
+    ``center_race_scan`` and ``center_race_scan.settle`` (``utils.timing``);
+    a batch runs until every site has converged, and a converged site's
+    further rounds leave it as it is, so every site equals the reference's,
+    bit for bit."""
     lab, seeded, dist, won, steps, eps = _race_init(labels, seeds, lam)
     _, h, w = lab.shape
     a_step, d_step = steps[0], steps[4]
@@ -259,14 +263,16 @@ def center_race_scan(
         ds, ws = _relax_family(_shear(dist.flip(-1), _BIG), _shear(won.flip(-1), 0),
                                lab_fsh, blk_fsh, d_step, 1, eps)
         dist, won = _unshear(ds, h, w).flip(-1), _unshear(ws, h, w).flip(-1)
-        if not _changed(dist, won, d0, w0):
+        timing.count("rounds/center_race_scan")
+        if not timing.flag(_changed(dist, won, d0, w0), "center_race_scan"):
             break
 
     grow = inside & ~seeded
     while True:
         d0, w0 = dist, won
         dist, won = _sweep(dist, won, lab, grow, steps, eps)
-        if not _changed(dist, won, d0, w0):
+        timing.count("rounds/center_race_scan.settle")
+        if not timing.flag(_changed(dist, won, d0, w0), "center_race_scan.settle"):
             break
     return dist, won
 

@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from saguaro_tpu_torch.kernels.onehot_reduce import mxu_take, onehot_counts
+from saguaro_tpu_torch.utils import timing
 
 __all__ = ["global_threshold", "adaptive_threshold", "smooth_for_binarize"]
 
@@ -111,8 +112,9 @@ def _li_threshold(data: torch.Tensor, valid: torch.Tensor, tolerance) -> torch.T
     it = 0
     while True:
         running = (torch.abs(t_next - t_curr) > tol) & (it < 256)
-        if not bool(running.any()):
+        if not timing.flag(running, "li_threshold"):
             break
+        timing.count("rounds/li_threshold")
         t = t_next
         fore = (img > t[:, None]) & vflat
         foref = fore.float()

@@ -29,6 +29,7 @@ from saguaro_tpu_torch.pipeline.features import (
 )
 from saguaro_tpu_torch.pipeline.manifest import Manifest
 from saguaro_tpu_torch.pipeline.pixel_stages import bucket_path
+from saguaro_tpu_torch.utils import timing
 from saguaro_tpu_torch.utils.timing import StageTimer
 
 logger = logging.getLogger("saguaro_tpu_torch.feature_extraction")
@@ -80,12 +81,13 @@ def run_feature_extraction_job(
     device work. A failing batch degrades to per-site work, a failing site
     to an empty-table placeholder; the same failure on most sites raises
     ``SystemicFailureError``. ``timer`` accumulates the host seconds of the
-    stages ``read``, ``segment``, ``dispatch``, ``finalize`` and ``write``.
+    stages ``read``, ``segment``, ``dispatch``, ``finalize`` and ``write``;
+    without one they go to the active recorder (``utils.timing.stage``).
     With a ``mesh`` a batch whose size its data axis divides is measured
     sharded over it (``measure_site_batch_dispatch``).
     """
     dev = resolve_device(device)
-    timer = timer or StageTimer()
+    stage = timer.stage if timer is not None else timing.stage
     cfg = feature_cfg or FeatureConfig(channels=tuple(channels))
     illum = load_illum_functions(illum_path, channels) if illum_path else None
     seg_one = getattr(segmenter, "segment", segmenter)
@@ -113,7 +115,7 @@ def run_feature_extraction_job(
         metadata = {c: row[c] for c in _METADATA_COLS if c in row.index}
         metas[image_number] = metadata
         try:
-            with timer.stage("read"):
+            with stage("read"):
                 chans = []
                 for k, p in enumerate(site_image_paths(row, channels, image_path)):
                     img = tiff.imread(p).astype(np.float32)
@@ -144,7 +146,7 @@ def run_feature_extraction_job(
             return
         handle, p_nums, p_ok = p
         try:
-            with timer.stage("finalize"):
+            with stage("finalize"):
                 tables = measure_site_batch_finalize(
                     handle, image_numbers=p_nums, metadata=[metas[n] for n in p_nums]
                 )
@@ -159,7 +161,7 @@ def run_feature_extraction_job(
         for s in range(0, len(items), site_batch):
             chunk = items[s : s + site_batch]
             labels_list: list = [None] * len(chunk)
-            with timer.stage("segment"):
+            with stage("segment"):
                 if seg_batch is not None:
                     try:
                         labels_list = list(seg_batch(np.stack([im for _, im in chunk])))
@@ -181,7 +183,7 @@ def run_feature_extraction_job(
                 continue
             nums = [n for n, _, _ in ok]
             try:
-                with timer.stage("dispatch"):
+                with stage("dispatch"):
                     labels = torch.stack(
                         [torch.as_tensor(np.asarray(lb) if not isinstance(lb, torch.Tensor) else lb)
                          .to(device=dev, dtype=torch.int32) for _, _, lb in ok]
@@ -216,7 +218,7 @@ def run_feature_extraction_job(
             all_tables.setdefault(name, []).append(df)
 
     written = {}
-    with timer.stage("write"):
+    with stage("write"):
         for name, dfs in all_tables.items():
             out = storage.join(output_path, f"{name}.csv")
             storage.write_csv(pd.concat(dfs, ignore_index=True), out)

@@ -26,7 +26,6 @@ from dataclasses import dataclass
 import numpy as np
 import pandas as pd
 import torch
-from torch.profiler import record_function
 
 from saguaro_tpu_torch.device import on_device, resolve_device
 from saguaro_tpu_torch.kernels import segment_cuda as sc
@@ -64,6 +63,7 @@ from saguaro_tpu_torch.kernels.thresholding import (
 from saguaro_tpu_torch.kernels.onehot_reduce import onehot_counts
 from saguaro_tpu_torch.kernels.zernike import ZERNIKE_INDEXES
 from saguaro_tpu_torch.parallel.mesh import Mesh, shard_batch
+from saguaro_tpu_torch.utils import timing
 
 __all__ = [
     "FeatureConfig",
@@ -197,9 +197,12 @@ def _measure_all(image: torch.Tensor, nuclei: torch.Tensor, cfg: FeatureConfig) 
     Returns {"objects": {set: {column: (B, max_cells)}}, "image": {column:
     (B,) or (B, k)}}.
 
-    Each family runs inside a profiler range ``measure/<family>``
-    (``torch.profiler.record_function``: a no-op unless a profiler
-    records), which ``chip_smoke.py --profile`` reads.
+    Each family runs inside a span ``measure/<family>``
+    (``utils.timing.span``: a profiler record, a no-op unless a profiler
+    or the program's recorder records), which ``hcs_bench/`` reads: its
+    breakdown, ``measure.launches_per_site`` and
+    ``device.idle_in_wait_s_per_site.features``. A family's blocking
+    reads are its ``measure/<family>/wait`` records.
     """
     b, h, w, n_ch = image.shape
     # secondary objects grow over the mean of the non-nuclear channels (or
@@ -215,7 +218,7 @@ def _measure_all(image: torch.Tensor, nuclei: torch.Tensor, cfg: FeatureConfig) 
         upper_bound=cfg.secondary_threshold_upper,
         li_tolerance=li_tol,
     )
-    with record_function("measure/objects"):
+    with timing.span("measure/objects"):
         if cfg.secondary_threshold_scope == "adaptive":
             # a per-pixel block-constant map; CP's scalar Threshold_* columns
             # for adaptive scope are the maps' means
@@ -252,21 +255,21 @@ def _measure_all(image: torch.Tensor, nuclei: torch.Tensor, cfg: FeatureConfig) 
         # geometry, whose centre search reuses MaximumRadius**2
         cp_rings = cfg.measure_radial and cfg.radial_binning == "cp"
         d2_img = ring_wedge = radius = None
-        with record_function("measure/edt_radius"):
+        with timing.span("measure/edt_radius"):
             if cfg.measure_radius or cp_rings:
                 d2_img = _label_edt_sq(labels, cfg.max_radius)
             if cfg.measure_radius:
                 radius = radius_features(labels, cfg.max_cells, cfg.max_radius, d2_img=d2_img)
         if cp_rings:
             rmax = radius["MaximumRadius"] if radius is not None else None
-            with record_function("measure/center_race"):
+            with timing.span("measure/center_race"):
                 ring_wedge = cp_ring_wedge(
                     labels, cfg.max_cells, cfg.radial_rings, cfg.max_radius,
                     lam=cfg.radial_lam, d2_img=d2_img,
                     max_d2=None if rmax is None else rmax * rmax,
                 )
         del d2_img
-        with record_function("measure/fused"):
+        with timing.span("measure/fused"):
             fused = fused_object_features(
                 image, labels, cfg.max_cells,
                 n_rings=cfg.radial_rings,
@@ -290,7 +293,7 @@ def _measure_all(image: torch.Tensor, nuclei: torch.Tensor, cfg: FeatureConfig) 
             for k, v in radius.items():
                 feats[f"AreaShape_{k}"] = v
         if cfg.measure_convex:
-            with record_function("measure/convex"):
+            with timing.span("measure/convex"):
                 conv = convex_features(labels, cfg.max_cells, cfg.convex_dirs, area=shape["Area"])
             # per-site count of boundary pixels the hull sweep dropped: admin
             # data for the Image table, not a feature
@@ -307,14 +310,14 @@ def _measure_all(image: torch.Tensor, nuclei: torch.Tensor, cfg: FeatureConfig) 
             for zi, (n, m) in enumerate(ZERNIKE_INDEXES):
                 feats[f"AreaShape_Zernike_{n}_{m}"] = zmag[..., zi]
         if cfg.measure_neighbors:
-            with record_function("measure/neighbors"):
+            with timing.span("measure/neighbors"):
                 neigh = neighbor_features(labels, cfg.max_cells, cfg.neighbor_distance)
             for k, v in neigh.items():
                 feats[f"Neighbors_{k}_{cfg.neighbor_distance}"] = v
         cnt_f, vmin_f, vmax_f = fused["stats"]
         if cfg.measure_quantiles or cfg.measure_texture:
             # one per-pixel (vmin, vrange) gather shared by texture and quantiles
-            with record_function("measure/pixel_ranges"):
+            with timing.span("measure/pixel_ranges"):
                 vrange_f = torch.clamp(vmax_f - vmin_f, min=1e-12)
                 g_ranges = mxu_take_t(
                     torch.cat([vmin_f, vrange_f], dim=2), _flat(labels, cfg.max_cells),
@@ -322,7 +325,7 @@ def _measure_all(image: torch.Tensor, nuclei: torch.Tensor, cfg: FeatureConfig) 
                 )
             px_ranges = (g_ranges[:, :n_ch], g_ranges[:, n_ch:])
         if cfg.measure_texture:
-            with record_function("measure/texture"):
+            with timing.span("measure/texture"):
                 q_mc = quantize_channels(image, labels, cfg.glcm_levels, px_ranges)
                 glcms = object_glcm_multichannel(
                     labels, cfg.max_cells, cfg.glcm_levels, cfg.texture_scale, q_mc
@@ -337,7 +340,7 @@ def _measure_all(image: torch.Tensor, nuclei: torch.Tensor, cfg: FeatureConfig) 
                             ] = har[k][:, d]
                 del glcms
         if cfg.measure_quantiles:
-            with record_function("measure/quantiles"):
+            with timing.span("measure/quantiles"):
                 quant = quantile_intensity_features_mc(
                     image, labels, cfg.max_cells, stats=(cnt_f, vmin_f, vmax_f),
                     ranges=px_ranges, integer_grid=bool(cfg.integer_intensity_grid),
@@ -384,7 +387,7 @@ def _measure_all(image: torch.Tensor, nuclei: torch.Tensor, cfg: FeatureConfig) 
 
     if cfg.measure_colocalization and n_ch > 1:
         # all three object sets at once (Cells = Nuclei + Cytoplasm)
-        with record_function("measure/colocalization"):
+        with timing.span("measure/colocalization"):
             coloc_all = colocalization_features_multiset(
                 image, objects, vmax_by_set, cfg.max_cells,
                 thr_pct=cfg.coloc_threshold_pct,
@@ -408,7 +411,7 @@ def _measure_all(image: torch.Tensor, nuclei: torch.Tensor, cfg: FeatureConfig) 
 
     # granularity: all sites x channels reconstruct as one batch of planes
     planes = image.permute(0, 3, 1, 2).reshape(b * n_ch, h, w)
-    with record_function("measure/granularity"):
+    with timing.span("measure/granularity"):
         gran = granularity_spectrum_cp(
             planes, cfg.granularity_length,
             subsample_size=cfg.granularity_subsample,
@@ -534,20 +537,23 @@ def measure_site_batch_dispatch(images, nuclei_labels, cfg: FeatureConfig, devic
     contiguous shard a data device (``parallel.mesh.shard_batch``) and each
     shard is measured on its device, with packed buffers and pinned copies
     of its own; ``device`` is then not used. Otherwise the batch runs
-    unsharded on ``device``, as the reference does."""
+    unsharded on ``device``, as the reference does. The call is the span
+    ``features/dispatch`` (``utils.timing``)."""
     cfg = _resolve_integer_grid(cfg, images)
-    if mesh is not None and len(images) % mesh.shape["data"] == 0:
-        imgs, nucs = shard_batch(images, mesh), shard_batch(nuclei_labels, mesh)
-        parts = [_dispatch_on(i, n, cfg, d)
-                 for i, n, d in zip(imgs.shards, nucs.shards, imgs.devices)]
-        return MeasureHandle({}, parts[0].leaves, None, len(imgs), parts)
-    return _dispatch_on(images, nuclei_labels, cfg, resolve_device(device))
+    with timing.span("features/dispatch"):
+        if mesh is not None and len(images) % mesh.shape["data"] == 0:
+            imgs, nucs = shard_batch(images, mesh), shard_batch(nuclei_labels, mesh)
+            parts = [_dispatch_on(i, n, cfg, d)
+                     for i, n, d in zip(imgs.shards, nucs.shards, imgs.devices)]
+            return MeasureHandle({}, parts[0].leaves, None, len(imgs), parts)
+        return _dispatch_on(images, nuclei_labels, cfg, resolve_device(device))
 
 
 def _host_leaves(handle: MeasureHandle) -> dict[tuple[str, ...], np.ndarray]:
     """Wait for a handle's copy and unpack its leaves."""
     if handle.ready is not None:
-        handle.ready.synchronize()
+        with timing.blocking("finalize"):
+            handle.ready.synchronize()
     out = {}
     for key, dtype, shape, off in handle.leaves:
         n = int(np.prod(shape))
@@ -562,12 +568,20 @@ def measure_site_batch_finalize(
 ) -> list[dict[str, pd.DataFrame]]:
     """Wait for a dispatched measurement's copy, unpack its leaves (a sharded
     batch's shards joined in site order) and build one {'Image', 'Nuclei',
-    'Cells', 'Cytoplasm'} table dict per site."""
-    if handle.shards:
-        parts = [_host_leaves(h) for h in handle.shards]
-        leaves = {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
-    else:
-        leaves = _host_leaves(handle)
+    'Cells', 'Cytoplasm'} table dict per site. The call is the span
+    ``features/finalize``: its wait, then the span ``features/tables``."""
+    with timing.span("features/finalize"):
+        if handle.shards:
+            parts = [_host_leaves(h) for h in handle.shards]
+            leaves = {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
+        else:
+            leaves = _host_leaves(handle)
+        with timing.span("features/tables"):
+            return _tables(handle, leaves, image_numbers, metadata)
+
+
+def _tables(handle: MeasureHandle, leaves: dict, image_numbers, metadata) -> list[dict]:
+    """The per-site table dicts of a finalized handle's host leaves."""
     host: dict = {"objects": {}, "image": {}}
     for key, arr in leaves.items():
         if key[0] == "objects":

@@ -77,6 +77,7 @@ from saguaro_tpu_torch.models.effnet_weights import load_torch_effnet
 from saguaro_tpu_torch.models.xgb import XGBEnsemble
 from saguaro_tpu_torch.parallel.mesh import Mesh, default_mesh_for, replicate, shard_batch
 from saguaro_tpu_torch.pipeline.manifest import Manifest
+from saguaro_tpu_torch.utils import timing
 from saguaro_tpu_torch.utils.timing import StageTimer
 
 logger = logging.getLogger("saguaro_tpu_torch.segment_embed")
@@ -266,7 +267,7 @@ class SegmentEmbedEngine:
             flows.float(),
             max_cells=self.cfg.max_cells,
         )
-        errs = errs.cpu().numpy()
+        errs = timing.fetch(errs, "flow_qc")
         out = []
         for i in range(len(labels_list)):
             lab, n = labels_arr[i], int(maxes[i])
@@ -317,37 +318,46 @@ class SegmentEmbedEngine:
         its data axis, split over it, and every shard's network pass is
         queued on its device before any shard's mask recovery (which reads
         back to the host) starts; the labels come back in site order without
-        the padding."""
+        the padding. The call is the span ``segment/batch``, the network
+        pass ``segment/network`` and the mask recovery with its flow QC and
+        hole filling ``segment/masks`` (``utils.timing``)."""
+        with timing.span("segment/batch"):
+            return self._segment_batch(images)
+
+    def _segment_batch(self, images) -> list[torch.Tensor]:
         cfg = self.cfg
         x = self._to_device(images)
         h0, w0 = x.shape[1:3]
         shards, real = self._shards(x)
         nets = []
-        for model, shard in zip(self._cell_replicas, shards):
-            with on_device(shard.device):
-                net_in = convert_input(shard, cfg.cellpose.n_channels)
-                nets.append(segment_image_batch(model, net_in, cfg.cellpose, diameter=cfg.diameter,
-                                                at_network_resolution=True))
+        with timing.span("segment/network"):
+            for model, shard in zip(self._cell_replicas, shards):
+                with on_device(shard.device):
+                    net_in = convert_input(shard, cfg.cellpose.n_channels)
+                    nets.append(segment_image_batch(model, net_in, cfg.cellpose,
+                                                    diameter=cfg.diameter,
+                                                    at_network_resolution=True))
         h1, w1 = nets[0][0].shape[2:]
         scale = (h1 * w1) / (h0 * w0)
         min_size_low = max(1, int(round(cfg.min_size * scale))) if cfg.min_size else 0
         labels_low = []
-        for (flows, cellprob), n_real in zip(nets, real):
-            if n_real == 0:  # a shard of padding only
-                continue
-            with on_device(flows.device):
-                low = compute_masks_batch(
-                    flows, cellprob,
-                    cellprob_threshold=cfg.cellprob_threshold,
-                    n_iters=cfg.flow_iters,
-                    min_size=min_size_low,
-                )
-                if cfg.flow_error_threshold is not None:
-                    low = self._drop_bad_flow_masks_batch(low, flows / 5.0)
-            labels_low += low[:n_real]
-        del nets
-        if cfg.fill_holes:
-            labels_low = [fill_label_holes(np.asarray(lab)) for lab in labels_low]
+        with timing.span("segment/masks"):
+            for (flows, cellprob), n_real in zip(nets, real):
+                if n_real == 0:  # a shard of padding only
+                    continue
+                with on_device(flows.device):
+                    low = compute_masks_batch(
+                        flows, cellprob,
+                        cellprob_threshold=cfg.cellprob_threshold,
+                        n_iters=cfg.flow_iters,
+                        min_size=min_size_low,
+                    )
+                    if cfg.flow_error_threshold is not None:
+                        low = self._drop_bad_flow_masks_batch(low, flows / 5.0)
+                labels_low += low[:n_real]
+            del nets
+            if cfg.fill_holes:
+                labels_low = [fill_label_holes(np.asarray(lab)) for lab in labels_low]
         lab = torch.as_tensor(np.stack(labels_low).astype(np.int32), device=self.device)
         if (h1, w1) != (h0, w0):
             lab = resize_nearest(lab, (h0, w0))
@@ -366,11 +376,13 @@ class SegmentEmbedEngine:
         Errors degrade per site, logged at ERROR: a failed batched
         segmentation falls back to segmenting site by site, a failed pooled
         embed to embedding site by site, and a site that still fails comes
-        back ``{"status": "empty", "n_cells": 0}``."""
-        timer = timer or StageTimer()
+        back ``{"status": "empty", "n_cells": 0}``. Its stages ``segment``
+        and ``embed`` go to ``timer``, else to the active recorder
+        (``utils.timing.stage``)."""
+        stage = timer.stage if timer is not None else timing.stage
         results: dict[int, dict] = {}
         try:
-            with timer.stage("segment"):
+            with stage("segment"):
                 images_dev = self._to_device(images)
                 labels_list = self.segment_batch(images_dev)
         except Exception as e:
@@ -384,7 +396,7 @@ class SegmentEmbedEngine:
                     logger.error("segment failed: %s", e2)
                     labels_list.append(np.zeros(tuple(img.shape[:2]), np.int32))
         try:
-            with timer.stage("embed"):
+            with stage("embed"):
                 per_site = self.embed_sites_pooled(images_dev, labels_list)
         except Exception as e:
             logger.error("pooled embed failed (%s); falling back per-site", e)
@@ -398,9 +410,9 @@ class SegmentEmbedEngine:
         # surface max_cells truncation: ids beyond the bound are absent from
         # the crops, so a dense site must be told apart from a clean one in
         # the logs. The maxima are reduced on the device and fetched once.
-        n_segs = torch.stack(
+        n_segs = timing.fetch(torch.stack(
             [self._to_device(lab).max().to(torch.int64) for lab in labels_list]
-        ).cpu().numpy()
+        ), "label_maxima")
         for sid, n_seg, (feats, coords) in zip(site_ids, n_segs, per_site):
             try:
                 n_trunc = max(0, int(n_seg) - (self.cfg.max_cells - 1))
@@ -447,7 +459,13 @@ class SegmentEmbedEngine:
         inside the chunk loop.
 
         Returns, per site, (features (n_i, C, 1280) f32, coords (n_i, 2)
-        int64 [cy, cx]), cells in label order."""
+        int64 [cy, cx]), cells in label order. The call is the span
+        ``embed/pooled``; each chunk's crops ``embed/crops`` and its forward
+        ``embed/network`` (``utils.timing``)."""
+        with timing.span("embed/pooled"):
+            return self._embed_sites_pooled(images, labels_list)
+
+    def _embed_sites_pooled(self, images, labels_list) -> list[tuple[np.ndarray, np.ndarray]]:
         cfg = self.cfg
         dev = self.device
         images = self._to_device(images).float()
@@ -455,7 +473,8 @@ class SegmentEmbedEngine:
         labels = torch.stack([self._to_device(lab).to(torch.int32) for lab in labels_list])
         cy, cx, cnt = label_centroids(labels, cfg.max_cells)
         valid = (cnt > 0) & in_bounds(cy, cx, h, w, cfg.box_size)
-        valid_np, cy_np, cx_np = torch.stack([valid.int(), cy, cx]).reshape(3, -1).cpu().numpy()
+        valid_np, cy_np, cx_np = timing.fetch(torch.stack([valid.int(), cy, cx]).reshape(3, -1),
+                                              "embed.slots")
         idx = np.flatnonzero(valid_np)
         if idx.size == 0:
             return [self._empty(n_ch) for _ in range(b)]
@@ -487,7 +506,7 @@ class SegmentEmbedEngine:
             img_d, lab_d, slots_d = on_dev[d]
             with on_device(d):
                 feats[s : s + ck] = self._embed_chunk(img_d, lab_d, slots_d[:, s : s + ck], model)
-        feats = feats[:n_flat].cpu().numpy().reshape(idx.size, n_ch, FEATURE_LENGTH)
+        feats = timing.fetch(feats[:n_flat], "embed.result").reshape(idx.size, n_ch, FEATURE_LENGTH)
         coords = np.stack([cy_np, cx_np], axis=-1).astype(np.int64)
         site_of = idx // cfg.max_cells
         return [(feats[site_of == i], coords[idx[site_of == i]]) for i in range(b)]
@@ -495,9 +514,11 @@ class SegmentEmbedEngine:
     def _embed_chunk(self, images_chw, labels, slots, model=None) -> torch.Tensor:
         """One chunk: (5, k) slots (site, label, channel, cy, cx) -> (k, 1280),
         by ``model`` (default: the engine's own network)."""
-        crops = gather_crops(images_chw, labels, *slots, box=self.cfg.box_size)
-        x = preprocess_crops(crops, self.cfg.embed_size, n_channels=self._embed_in_ch)
-        return (model or self.feat_model)(x.contiguous(memory_format=EMBED_MEMORY_FORMAT))
+        with timing.span("embed/crops"):
+            crops = gather_crops(images_chw, labels, *slots, box=self.cfg.box_size)
+            x = preprocess_crops(crops, self.cfg.embed_size, n_channels=self._embed_in_ch)
+        with timing.span("embed/network"):
+            return (model or self.feat_model)(x.contiguous(memory_format=EMBED_MEMORY_FORMAT))
 
     def embed_site(self, image, labels) -> tuple[np.ndarray, np.ndarray]:
         """Crops and embeddings of one site: (features (n_cells, C, 1280) f32,
