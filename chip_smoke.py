@@ -2,12 +2,13 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels (K1-K7, ``saguaro_tpu_torch/csrc``) from the
+Builds the port's CUDA kernels (K1-K8, ``saguaro_tpu_torch/csrc``) from the
 checkout, one ``nvcc`` a source in parallel, holds each one against its
 plain PyTorch twin at the shapes its path gives it and times both: K1-K6
-at the feature-extraction path's (8 sites of 1080 x 1080, 5 channels,
+and K8 at the feature-extraction path's (8 sites of 1080 x 1080, 5 channels,
 max_cells=512; K1 and K3 at each of their call sites there, with the
-inputs one measurement gives them), K7 at the pixel path's (16 raw 2160 x
+inputs one measurement gives them; K8 on the 40 granularity planes of
+270 x 270), K7 at the pixel path's (16 raw 2160 x
 2160 uint16 fields re-binned to 1080 x 1080, plus f32 input, an
 upsampling and an odd non-square case; K5 also on 8 sparse sites, of 4
 small objects each). K3, K4 radial, K5, K6 and K7 are also timed bare: their
@@ -318,12 +319,13 @@ def log_resources(build_log: str) -> None:
     from saguaro_tpu_torch.kernels import segment_cuda as sc
 
     names = ("sag_lanes", "sag_counts", "sag_sums", "sag_lanczos", "sag_radial", "sag_edt_sweep",
-             "sag_pick2")
+             "sag_pick2", "sag_granularity")
     rep = [k for k in ptxas_report(build_log) if any(n in k["name"] for n in names)]
-    kinds = ("lanes_a", "lanes_c", "counts", "sums", "lanczos", "radial", "edt_sweep", "pick2")
+    kinds = ("lanes_a", "lanes_c", "counts", "sums", "lanczos", "radial", "edt_sweep", "pick2",
+             "granularity")
     if not all(any(f"sag_{p}_kernel" in k["name"] for k in rep) for p in kinds):
         raise AssertionError("the build log has no ptxas report of the K1, K3, K4 A/C/radial, K5, "
-                             "K6 or K7 kernels")
+                             "K6, K7 or K8 kernels")
     spilled = []
     for k, name in zip(rep, demangle([k["name"] for k in rep])):
         log(f"ptxas {name}: {k['registers']} registers, {k['spill_stores']} B spill stores, "
@@ -331,7 +333,7 @@ def log_resources(build_log: str) -> None:
         if k["spill_stores"] + k["spill_loads"] > 0:
             spilled.append(name)
     if spilled:
-        raise AssertionError(f"K1, K3, K4 pass A/C/E/radial, K5, K6 or K7 kernels spill "
+        raise AssertionError(f"K1, K3, K4 pass A/C/E/radial, K5, K6, K7 or K8 kernels spill "
                              f"registers: {spilled}")
     for vec in (True, False):
         log(f"K5 at rows of {SIZE}, radius 64, {'16' if vec else '4'}-byte form: "
@@ -500,9 +502,42 @@ def check_kernels(images, labels, dev):
     del want, got, pw, bnd
 
     check_family_kernels(img, lab, seg, entry, out)
-    del img, lab, seg
+    del lab, seg
+    check_granularity_kernel(img, entry, out)
+    del img
     check_resample(dev, entry)
     return out, counters, entry
+
+
+def check_granularity_kernel(img, entry, entries) -> None:
+    """K8 on the granularity planes of the 8 sites (sites x channels of
+    1080² subsampled to 270², background removed): the spectrum within
+    GRAN_K8_RTOL of the plain form's, two calls bit for bit the same; its
+    time beside its bound (the pixels read once, the spectrum written
+    once) and the plain form's, its registers, shared memory and grid."""
+    import torch
+
+    from saguaro_tpu_torch.kernels import segment_cuda as sc
+    from saguaro_tpu_torch.kernels.morphology import granularity_pixels, granularity_scales_plain
+
+    b, h, w, n_ch = img.shape
+    px = granularity_pixels(img.permute(0, 3, 1, 2).reshape(b * n_ch, h, w))
+    got, again = sc.sag_granularity(px, GRAN_LENGTH), sc.sag_granularity(px, GRAN_LENGTH)
+    want = granularity_scales_plain(px, GRAN_LENGTH)
+    torch.cuda.synchronize()
+    if not torch.equal(got, again):
+        raise AssertionError("K8's spectrum differs from call to call")
+    err = float((got - want).abs().max())
+    if not bool(((got - want).abs() <= GRAN_K8_RTOL * want.abs() + 1e-6).all()):
+        raise AssertionError(f"K8's spectrum differs from the plain form by {err:.3g}")
+    info = sc.granularity_kernel_info(*px.shape)
+    log(f"K8 at {tuple(px.shape)}, {GRAN_LENGTH} scales: {json.dumps(info)}; spectrum within "
+        f"{err:.3g} of the plain form (largest {float(want.abs().max()):.4g})")
+    entry("sag_granularity", "saguaro_tpu_torch/csrc/granularity.cu",
+          "none: XLA while_loop, saguaro_tpu/kernels/morphology.py:283", err,
+          lambda: sc.sag_granularity(px, GRAN_LENGTH), lambda: granularity_scales_plain(px, GRAN_LENGTH),
+          n_bytes=4.0 * px.numel() + 4.0 * px.shape[0] * GRAN_LENGTH, n_ops=0.0)
+    entries["sag_granularity"].update(info)
 
 
 def check_family_kernels(img, lab, seg, entry, entries):
@@ -1425,6 +1460,11 @@ ORACLE_COLUMN = {"moments": "AreaShape_{}", "intensity": "Intensity_{}", "edge":
                  "radial": "RadialDistribution_{}", "corr": "Correlation_{}",
                  "shape": "AreaShape_{}", "zernike": "AreaShape_Zernike_{}"}
 GRAN_RTOL = 1e-5            # legacy granularity, card vs CPU, of the spectrum's scale
+GRAN_LENGTH = 16            # granularity scales (FeatureConfig.granularity_length)
+# K8 against the plain form on the card: the reconstructions are exact, the
+# per-plane sums of each scale are taken in another order (f64 tile sums
+# against PyTorch's f32 reduction)
+GRAN_K8_RTOL = 1e-5
 MESH_LOSS_RTOL = 1e-5       # training with and without the mesh, relative loss
 
 

@@ -14,7 +14,9 @@
 
 Every function takes a leading batch dimension: labels and images are
 (B, H, W). The reference's ``lax.while_loop``s are Python loops that check
-convergence on the device every ``check_every`` sweeps.
+convergence on the device every ``check_every`` sweeps; on a CUDA tensor
+the granularity spectrum's reconstructions run instead in one launch of
+the hand-written kernel ``segment_cuda.sag_granularity``.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from saguaro_tpu_torch.kernels import segment_cuda
 from saguaro_tpu_torch.utils import timing
 
 __all__ = [
@@ -233,14 +236,27 @@ def granularity_spectrum_cp(
     1. subsample by a strided gather (1/subsample is an integer);
     2. background = grey erosion then dilation with disk(element_size) on a
        further subsample, upsampled back with the align-corners mapping and
-       subtracted (clipped at 0);
+       subtracted (clipped at 0) (``granularity_pixels``);
     3. per k: erode with the 3x3 cross, reconstruct under the
        background-removed image to convergence, record
-       mean(prev - rec) * 100 / startmean.
-
-    The planes of a batch reconstruct together: the fixpoint is unique, so
-    sweeping a plane past its own convergence changes nothing.
+       mean(prev - rec) * 100 / startmean: on a CUDA tensor one launch of
+       ``segment_cuda.sag_granularity``, else ``granularity_scales_plain``.
     """
+    pixels = granularity_pixels(image, subsample_size, image_sample_size, element_size)
+    if pixels.is_cuda:
+        return segment_cuda.sag_granularity(pixels, spectrum_length)
+    return granularity_scales_plain(pixels, spectrum_length)
+
+
+def granularity_pixels(
+    image: torch.Tensor,
+    subsample_size: float = 0.25,
+    image_sample_size: float = 0.25,
+    element_size: int = 10,
+) -> torch.Tensor:
+    """Steps 1-2 of ``granularity_spectrum_cp``: the (B, H, W) planes
+    subsampled, less their background, clipped at 0 -> (B, nh, nw) f32,
+    contiguous."""
     x = image.float()
     h, w = x.shape[-2:]
     stride = int(round(1.0 / subsample_size))
@@ -262,8 +278,15 @@ def granularity_spectrum_cp(
     up_r = torch.from_numpy(_align_corners_mat(nh, bh)).to(x.device)
     up_c = torch.from_numpy(_align_corners_mat(nw, bw)).to(x.device)
     back_up = up_r @ back @ up_c.T
-    pixels = torch.clamp(pixels - back_up, min=0.0)
+    return torch.clamp(pixels - back_up, min=0.0)
 
+
+def granularity_scales_plain(pixels: torch.Tensor, spectrum_length: int) -> torch.Tensor:
+    """Step 3 of ``granularity_spectrum_cp`` in PyTorch operations, the
+    plain form of ``segment_cuda.sag_granularity``: (B, H, W) background-
+    removed planes -> (B, spectrum_length). The planes of a batch
+    reconstruct together: the fixpoint is unique, so sweeping a plane past
+    its own convergence changes nothing."""
     startmean = pixels.mean(dim=(1, 2))
     denom = torch.clamp(startmean, min=float(np.finfo(np.float64).eps))
     ero = pixels

@@ -17,7 +17,11 @@ kernel of ``saguaro_tpu/kernels/segment_pallas.py``:
 * K6 ``seg_pick2``       per-pixel two-level table pick  (``pick2_pallas``)
 
 K7, the Lanczos re-binner of the pixel stages (``csrc/lanczos.cu``), is
-built into the same library and counted here as ``lanczos_resize``.
+built into the same library and counted here as ``lanczos_resize``. K8
+``sag_granularity`` (``csrc/granularity.cu``) replaces no Pallas kernel:
+it runs every scale of the granularity spectrum's reconstructions, which
+the reference leaves to an XLA ``while_loop``, in one cooperative launch;
+its plain form is ``morphology.granularity_scales_plain``.
 
 Every kernel takes a leading site-batch dimension, so one launch covers a
 batch. The sources are compiled at first use, one ``nvcc`` a source in
@@ -47,6 +51,7 @@ import torch
 
 from saguaro_tpu_torch.device import on_device
 from saguaro_tpu_torch.kernels.zernike import ZERNIKE_INDEXES
+from saguaro_tpu_torch.utils import timing
 
 __all__ = [
     "LAUNCHES",
@@ -93,6 +98,8 @@ __all__ = [
     "n_lanes_c",
     "table_cols_c",
     "lanes_kernel_info",
+    "sag_granularity",
+    "granularity_kernel_info",
 ]
 
 _PKG = Path(__file__).resolve().parents[1]
@@ -100,7 +107,7 @@ _CSRC = _PKG / "csrc"
 _BUILD = _PKG / "_build"
 _SOURCES = (
     "common.cuh", "counts.cu", "take.cu", "sums.cu", "lane_sums.cu", "radial_sums.cu",
-    "edt_sweep.cu", "pick2.cu", "lanczos.cu", "errors.cu",
+    "edt_sweep.cu", "pick2.cu", "lanczos.cu", "granularity.cu", "errors.cu",
 )
 _NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -120,6 +127,7 @@ LAUNCHES: dict[str, int] = {
     "seg_edt_sweep": 0,
     "seg_pick2": 0,
     "lanczos_resize": 0,
+    "sag_granularity": 0,
 }
 
 _LIB: ctypes.CDLL | None = None
@@ -201,6 +209,8 @@ SIGNATURES = {
     "sag_pick2_info": (_I, _P),
     "sag_lanczos": (_P, _I, _P, _P, _P, _I, _I, _P, _P, _I, _I, _P, _P) + (_I,) * 9 + (_P,),
     "sag_lanczos_info": (_I, _I, _I, _P),
+    "sag_granularity": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "sag_granularity_info": (_I, _I, _I, _P),
 }
 
 
@@ -1329,4 +1339,57 @@ def pick2_plain(hi: torch.Tensor, lo: torch.Tensor, tables: torch.Tensor) -> tor
     sets = flat[:, site, chan, idx]  # (K, B, N, C)
     buf, out = pick2_out(b, n, n_ch, k, hi.device)
     out.permute(3, 0, 1, 2).copy_(torch.where(ok, sets, torch.zeros_like(sets)))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K8: the granularity spectrum's reconstructions, every scale in one launch
+
+K8_TILE = 32  # K8_T in granularity.cu: a warp's tile is K8_TILE x K8_TILE pixels
+
+
+@lru_cache(maxsize=None)
+def granularity_kernel_info(b: int, h: int, w: int) -> dict[str, int]:
+    """Resources of K8's kernel on the current card and its grid for (b, h,
+    w) planes: registers and local (spilled) bytes a thread, shared bytes
+    and resident CTAs a SM, SMs, the grid's CTAs and the tiles."""
+    info = (ctypes.c_int * 7)()
+    rc = _lib().sag_granularity_info(b, h, w, info)
+    if rc != 0:
+        raise RuntimeError(f"sag_granularity_info failed: CUDA error {rc}")
+    return dict(zip(("registers", "local_bytes", "smem", "ctas_per_sm", "sms", "ctas", "tiles"),
+                    info))
+
+
+def sag_granularity(pixels: torch.Tensor, spectrum_length: int) -> torch.Tensor:
+    """pixels (B, H, W) f32, background removed -> (B, spectrum_length) f32:
+    step 3 of ``morphology.granularity_spectrum_cp`` (cross erosions,
+    reconstructions by dilation under ``pixels``, the mean of each scale's
+    removed volume x 100 over the mean pixel) in one launch and no host
+    read. Each reconstruction equals the plain form's bit for bit; only
+    the order of the per-plane sums differs, and a call is deterministic.
+    With a recorder active (``utils.timing``) its grid rounds and in-tile
+    scans, summed over the scales, are fetched and counted as
+    ``rounds/granularity.grid`` and ``rounds/granularity.tile``."""
+    _check(pixels, "pixels", torch.float32, 3)
+    b, h, w = pixels.shape
+    if min(b, h, w) < 1 or spectrum_length < 1:
+        raise ValueError(f"K8 needs planes of at least 1 pixel and a spectrum length of at "
+                         f"least 1 (got {tuple(pixels.shape)}, {spectrum_length})")
+    n_tiles = b * -(-h // K8_TILE) * -(-w // K8_TILE)  # the last row and column ragged
+    dev = pixels.device
+    scratch = torch.empty((3, b, h, w), dtype=torch.float32, device=dev)
+    part = torch.empty((n_tiles, spectrum_length + 1), dtype=torch.float64, device=dev)
+    flags = torch.empty(2 * n_tiles + 3, dtype=torch.int32, device=dev)
+    counters = torch.empty(2, dtype=torch.int32, device=dev)
+    out = torch.empty((b, spectrum_length), dtype=torch.float32, device=dev)
+    _launch(
+        "sag_granularity", "sag_granularity", dev,
+        pixels.data_ptr(), scratch.data_ptr(), part.data_ptr(), flags.data_ptr(),
+        counters.data_ptr(), out.data_ptr(), b, h, w, spectrum_length,
+    )
+    if timing.is_recording():
+        grid_rounds, tile_scans = timing.fetch(counters, "granularity")
+        timing.count("rounds/granularity.grid", int(grid_rounds))
+        timing.count("rounds/granularity.tile", int(tile_scans))
     return out

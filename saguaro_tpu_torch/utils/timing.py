@@ -56,6 +56,7 @@ __all__ = [
     "count",
     "fetch",
     "flag",
+    "is_recording",
     "span",
     "stage",
     "trace_annotation",
@@ -166,6 +167,12 @@ def fetch(t: torch.Tensor, loop: str):
     """``t.cpu().numpy()``, a wait."""
     with blocking(loop):
         return t.cpu().numpy()
+
+
+def is_recording() -> bool:
+    """Whether a recorder is active: a caller that would read the device
+    only to count for it reads nothing without one."""
+    return _active is not None
 
 
 def count(name: str, n: int = 1) -> None:

@@ -5,7 +5,9 @@ f64, to 1e-5 of each lane's rounding scale (``magnitude=True``: the sum of
 |lane|, and for Zernike lanes of the radial terms' magnitudes); counted
 lanes (areas, small-integer sums) exactly; K7's sums to 1e-5 of each
 output's sum of |w * x|, its rounded integers within 1 unit; K5 and K6
-(in the plain form's set-major layout) exactly. Marker
+(in the plain form's set-major layout) exactly; K8's granularity spectrum
+within rtol 1e-5 (its reconstructions are exact, its per-plane sums taken
+in another order) and bit for bit from call to call. Marker
 ``cuda``: skipped without a card. The
 file imports neither JAX nor the reference, so it runs on the card:
 
@@ -527,3 +529,73 @@ def test_lanczos_kernel(cuda, dtype, batch, in_shape, out_shape):
         plain = rs._cast(rs.resize_plain(imgs, out_shape), imgs.dtype)
         assert cast.dtype == imgs.dtype
         assert int((cast.to(torch.int32) - plain.to(torch.int32)).abs().max()) <= 1
+
+
+def _granularity_planes(kind, b, h, w, seed=0):
+    """(b, h, w) f32 background-removed planes on the host: ``blobs`` from
+    ``blob_sites`` (sites x channels of 4h x 4w, through
+    ``granularity_pixels``), else random grey levels rounded to plateaus."""
+    from saguaro_tpu_torch.kernels.morphology import granularity_pixels
+
+    if kind == "blobs":
+        img, _ = blob_sites(n_sites=b // 5, h=4 * h, w=4 * w, n_ch=5, n_cells=80, seed=seed)
+        planes = torch.from_numpy(np.ascontiguousarray(np.moveaxis(img, -1, 1).reshape(b, 4 * h, 4 * w)))
+        return granularity_pixels(planes)
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(np.round(rng.random((b, h, w)) * 40).astype(np.float32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,b,h,w", [("blobs", 40, 270, 270), ("plateaus", 1, 1, 1),
+                                         ("plateaus", 1, 17, 300), ("plateaus", 3, 541, 541)])
+def test_granularity_kernel(cuda, kind, b, h, w):
+    """K8 against the plain form on the card: the spectrum within rtol 1e-5
+    (atol 1e-6), two calls bit for bit the same, one launch a call."""
+    from saguaro_tpu_torch.kernels.morphology import granularity_scales_plain
+
+    px = _granularity_planes(kind, b, h, w).to(cuda)
+    before = sc.LAUNCHES["sag_granularity"]
+    got = sc.sag_granularity(px, 16)
+    again = sc.sag_granularity(px, 16)
+    torch.cuda.synchronize()
+    assert sc.LAUNCHES["sag_granularity"] == before + 2
+    want = granularity_scales_plain(px, 16)
+    assert got.shape == (b, 16) and got.dtype == torch.float32
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+    if kind == "blobs":
+        assert float(want.abs().max()) > 1.0
+
+
+@pytest.mark.cuda
+def test_granularity_kernel_refuses_what_it_does_not_take(cuda):
+    px = _granularity_planes("plateaus", 2, 40, 50).to(cuda)
+    for bad in (px.cpu(), px.double(), px.transpose(1, 2)):
+        with pytest.raises(ValueError):
+            sc.sag_granularity(bad, 16)
+
+
+@pytest.mark.cuda
+def test_granularity_kernel_counts_for_a_recorder_only(cuda):
+    """With a recorder open the kernel's rounds are fetched once (one wait,
+    at least one grid round a scale); without one there is no read and no
+    wait record, and the launch is the profiler's one ``sag/`` op."""
+    from saguaro_tpu_torch.utils import timing
+
+    px = _granularity_planes("plateaus", 3, 90, 70).to(cuda)
+    rec = timing.StageTimer()
+    with rec.recording(cuda, launches=sc.LAUNCHES):
+        with timing.span("measure/granularity"):
+            sc.sag_granularity(px, 16)
+    assert rec.counters["waits/granularity"] == 1
+    assert rec.counters["rounds/granularity.grid"] >= 16
+    assert rec.counters["rounds/granularity.tile"] >= 4 * rec.counters["rounds/granularity.grid"]
+    assert rec.counters["launches/sag_granularity"] == 1
+    assert [r.name for r in rec.rows if r.kind == "wait"] == ["measure/granularity/wait"]
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        with timing.span("measure/granularity"):
+            sc.sag_granularity(px, 16)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()]
+    assert not [n for n in names if n.endswith("/wait")]
+    assert names.count("sag/sag_granularity") == 1

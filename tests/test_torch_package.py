@@ -279,6 +279,7 @@ def _cpu_wrapper_calls():
         "lanczos_resize": lambda: lanczos_resize_cuda(
             torch.zeros((1, 8, 6), dtype=torch.uint16), bands, bands, None, (4, 4)
         ),
+        "sag_granularity": lambda: sc.sag_granularity(torch.zeros((1, 4, 2)), 3),
     }
 
 

@@ -42,6 +42,14 @@ def test_stage_timer_api_and_summary_rows():
     assert not t.rows and not t.counters
 
 
+def test_is_recording_only_while_a_recorder_is_active():
+    assert not timing.is_recording()
+    rec = StageTimer()
+    with rec.recording("cpu"):
+        assert timing.is_recording()
+    assert not timing.is_recording()
+
+
 def test_log_summary_logs_the_summary(caplog):
     t = StageTimer()
     with t.stage("read"):

@@ -72,6 +72,30 @@ def blob_sites(
     return images, labels
 
 
+def spiral_path(n: int) -> np.ndarray:
+    """(n, n) bool: a one-pixel path winding inward from (0, 0) as a square
+    spiral, its loops one pixel apart, so that a value spreading along it
+    from its start crosses the plane's middle again on every loop."""
+    path = np.zeros((n, n), bool)
+    dirs = ((0, 1), (1, 0), (0, -1), (-1, 0))
+    y = x = d = 0
+    path[0, 0] = True
+
+    def free(dy, dx):
+        ny, nx, ay, ax = y + dy, x + dx, y + 2 * dy, x + 2 * dx
+        if not (0 <= ny < n and 0 <= nx < n) or path[ny, nx]:
+            return False
+        return not (0 <= ay < n and 0 <= ax < n and path[ay, ax])
+
+    while True:
+        if not free(*dirs[d]):
+            d = (d + 1) % 4
+            if not free(*dirs[d]):
+                return path
+        y, x = y + dirs[d][0], x + dirs[d][1]
+        path[y, x] = True
+
+
 def _label_runs(rng, n: int, max_cells: int) -> np.ndarray:
     """n raster labels in runs of 1-90 pixels (a third of them single
     pixels): ids in [1, max_cells) mostly, background 0 and -1, and
