@@ -8,7 +8,8 @@ For each seed: the cell's inputs and weights as a run makes them, one batch
 the check's numbers of the program against the reference; for the first
 ``--control`` seeds also the control's (the reference in the next lower
 precision, in the program's place). Prints one JSON line a seed, with
-the worst table columns or the embedding gaps' quantiles.
+the pipeline's details: the worst table columns, or the quantiles of the
+embedding gaps or of the sites' shares of objects off.
 """
 
 from __future__ import annotations
@@ -27,44 +28,27 @@ from hcs_bench import run as bench  # noqa: E402
 def one_seed(spec: dict, seed: int, control: bool, device) -> dict:
     import torch
 
-    from hcs_bench import program
+    from hcs_bench import pipelines, program
     from hcs_bench.compare import Side, numbers
     from hcs_bench.traffic.generator import seed_sequence
 
     cfg = spec["config"]
     t0 = time.perf_counter()
-    batches, cp_state, ef_state = bench.inputs_and_weights(spec, seed, device)
+    batches, states = bench.inputs_and_weights(spec, seed, device)
     k = int(seed_sequence(seed, 1).integers(0, bench.SAMPLE_BATCHES)) % len(batches)
     images = batches[k]
-    engine = program.build_engine(cfg, cp_state, ef_state, device)
-    if cfg["pipeline"] == "features":
-        fcfg = program.feature_config(cfg)
-        lab = torch.stack(engine.segment_batch(images))
-        labels = lab.cpu().numpy()
-        outputs = program.measure_site_batch_finalize(
-            program.measure_site_batch_dispatch(images, lab, fcfg, device=engine.device))
-    else:
-        seen = {}
-        segment = engine.segment_batch
-
-        def keep(x):
-            seen["labels"] = segment(x)
-            return seen["labels"]
-
-        engine.segment_batch = keep
-        res = engine.process_site_batch(list(range(len(images))), images)
-        outputs = [res.get(i) for i in range(len(images))]
-        labels = torch.stack(seen["labels"]).cpu().numpy()
+    engine = program.build_engine(cfg, states, device)
+    labels, outputs = pipelines.load(cfg["pipeline"]).batch(engine, cfg, images)
     del engine
     torch.cuda.empty_cache()
     t_prog = time.perf_counter() - t0
-    ref = Side(cfg, cp_state, ef_state, device)
+    ref = Side(cfg, states, device)
     cache, detail = {}, {}
     out = {"seed": seed, "batch": k, "program": numbers(cfg, images, labels, outputs, ref, seed,
                                                           detail=detail, cache=cache)}
     out["detail_program"] = summarize(detail)
     if control:
-        low = Side(cfg, cp_state, ef_state, device, lower=True)
+        low = Side(cfg, states, device, lower=True)
         detail = {}
         out["control"] = numbers(cfg, images, low.labels(images), None, ref, seed, control=low,
                                  detail=detail, cache=cache)
@@ -74,18 +58,19 @@ def one_seed(spec: dict, seed: int, control: bool, device) -> dict:
 
 
 def summarize(detail: dict) -> dict:
+    """The worst dozen of each set of per-column shares, and the quantiles
+    of each array of readings."""
     import numpy as np
 
-    if "columns" in detail:
-        out = {}
-        for key in ("columns", "own_columns"):
-            cols = detail[key]
-            worst = sorted(cols.items(), key=lambda kv: -kv[1])[:12]
-            out[key] = {"worst": [[f"{t}:{c}", v] for (t, c), v in worst],
-                        "with_off_rows": sum(v > 0 for v in cols.values()), "of": len(cols)}
-        return out
-    g = detail.get("gaps", np.zeros(0))
-    return {"gap_quantiles": [float(q) for q in np.quantile(g, [0, 0.5, 0.9, 0.99, 1.0])] if len(g) else []}
+    out = {}
+    for key, v in detail.items():
+        if isinstance(v, dict):
+            worst = sorted(v.items(), key=lambda kv: -kv[1])[:12]
+            out[key] = {"worst": [[f"{t}:{c}", x] for (t, c), x in worst],
+                        "with_off_rows": sum(x > 0 for x in v.values()), "of": len(v)}
+        elif len(v):
+            out[key] = [float(q) for q in np.quantile(v, [0, 0.5, 0.9, 0.99, 1.0])]
+    return out
 
 
 def main() -> int:

@@ -93,6 +93,32 @@ def label_px_off(prog: np.ndarray, ref: np.ndarray) -> float:
     return off / total if total else 0.0
 
 
+def objects_off_by_site(prog: np.ndarray, ref: np.ndarray, iou: float = 0.5) -> np.ndarray:
+    """Per site of the reference's, the larger of the shares of the
+    reference's objects and of the program's objects that have no partner
+    on the other side at an IoU of ``iou`` or more. A site with objects on
+    one side only, or missing on the program's side, reads 1; a site empty
+    on both sides 0."""
+    out = np.ones(len(ref))
+    for i, (p, r) in enumerate(zip(prog, ref)):
+        p, r = p.astype(np.int64).ravel(), r.astype(np.int64).ravel()
+        p_ids, p_area = np.unique(p[p > 0], return_counts=True)
+        r_ids, r_area = np.unique(r[r > 0], return_counts=True)
+        if p_ids.size == 0 or r_ids.size == 0:
+            out[i] = float(p_ids.size != r_ids.size)
+            continue
+        both = (p > 0) & (r > 0)
+        nr = int(r_ids.max()) + 1
+        pair, inter = np.unique(p[both] * nr + r[both], return_counts=True)
+        pa = p_area[np.searchsorted(p_ids, pair // nr)]
+        ra = r_area[np.searchsorted(r_ids, pair % nr)]
+        good = inter >= iou * (pa + ra - inter)
+        p_found = np.unique(pair[good] // nr).size
+        r_found = np.unique(pair[good] % nr).size
+        out[i] = max(1.0 - p_found / p_ids.size, 1.0 - r_found / r_ids.size)
+    return out
+
+
 def _column_off(x: np.ndarray, y: np.ndarray, tol: np.ndarray) -> np.ndarray:
     with np.errstate(invalid="ignore"):
         off = ~(np.abs(x - y) <= tol)

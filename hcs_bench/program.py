@@ -1,19 +1,21 @@
 """The system under test: ``saguaro_tpu_torch``'s segment-embed engine and
-measurement, built from a configuration file and driven through the
-measured window. The only module of the benchmark that imports the
-program."""
+measurement, built from a configuration file, and what the windows of
+``pipelines/`` share. The only module of the benchmark that imports the
+program: a pipeline reaches the program's calls through this module, and a
+network's config class is named by dotted path in the configuration."""
 
 from __future__ import annotations
 
+import dataclasses
+import importlib
 import time
+import typing
 from dataclasses import dataclass, field
 
 import numpy as np
 import torch
 from torch.profiler import record_function
 
-from saguaro_tpu_torch.models.cellpose import CellposeConfig
-from saguaro_tpu_torch.models.effnetv2 import EffNetV2Config, StageSpec
 from saguaro_tpu_torch.pipeline.features import (
     FeatureConfig,
     measure_site_batch_dispatch,
@@ -21,24 +23,49 @@ from saguaro_tpu_torch.pipeline.features import (
 )
 from saguaro_tpu_torch.pipeline.segment_embed import SegmentEmbedConfig, SegmentEmbedEngine
 
-ENGINE_KEYS = ("diameter", "max_cells", "cellprob_threshold", "flow_iters", "flow_error_threshold",
-               "fill_holes", "min_size", "site_batch", "box_size", "embed_size", "embed_chunk",
-               "fold_bn", "fold_rgb_stem")
+PROGRAM = "saguaro_tpu_torch"
 
 
-def build_engine(cfg: dict, cellpose_state: dict, effnet_state: dict | None, device) -> SegmentEmbedEngine:
+def resolve(path: str):
+    """The program's object at a dotted path (``package.module.Name``)."""
+    module, _, name = path.rpartition(".")
+    if module.split(".")[0] != PROGRAM:
+        raise ValueError(f"{path!r} is not in {PROGRAM}")
+    return getattr(importlib.import_module(module), name)
+
+
+def _value(hint, v):
+    """A configuration file's value as a field of type ``hint`` takes it: a
+    list as a tuple, each row of a tuple of dataclasses as one of them."""
+    if isinstance(v, list) and typing.get_origin(hint) is tuple:
+        item = typing.get_args(hint)[0]
+        if dataclasses.is_dataclass(item):
+            return tuple(item(*row) for row in v)
+        return tuple(v)
+    return v
+
+
+def build_config(section: dict):
+    """The program's config class named by the section's ``"class"``, built
+    from the section's other keys."""
+    cls = resolve(section["class"])
+    hints = typing.get_type_hints(cls)
+    return cls(**{k: _value(hints[k], v) for k, v in section.items() if k != "class"})
+
+
+def build_engine(cfg: dict, states: dict, device) -> SegmentEmbedEngine:
     """The engine as the configuration states it, with the benchmark's
-    weights."""
-    cp = CellposeConfig(**dict(cfg["cellpose"], features=tuple(cfg["cellpose"]["features"])))
-    kw = {k: v for k, v in cfg["engine"].items() if k in ENGINE_KEYS}
-    if "effnet" in cfg:
-        e = cfg["effnet"]
-        kw["effnet"] = EffNetV2Config(
-            stem_filters=e["stem_filters"], head_filters=e["head_filters"], input_size=e["input_size"],
-            compute_dtype=e["compute_dtype"], stages=tuple(StageSpec(*s) for s in e["stages"]))
-    return SegmentEmbedEngine(SegmentEmbedConfig(channels=list(cfg["channels"]), cellpose=cp, **kw),
-                              cellpose_state_dict=cellpose_state, effnet_state_dict=effnet_state,
-                              seed=0, device=device)
+    weights: ``engine``'s keys are fields of ``SegmentEmbedConfig``; each
+    section with a ``"class"`` is built into the field of its name, and
+    ``states[<name>]`` goes to the engine as ``<name>_state_dict``."""
+    names = {f.name for f in dataclasses.fields(SegmentEmbedConfig)}
+    kw = dict(cfg["engine"])
+    kw.update({k: build_config(v) for k, v in cfg.items() if isinstance(v, dict) and "class" in v})
+    unknown = sorted(set(kw) - names)
+    if unknown:
+        raise ValueError(f"not fields of SegmentEmbedConfig: {unknown}")
+    return SegmentEmbedEngine(SegmentEmbedConfig(channels=list(cfg["channels"]), **kw),
+                              **{f"{k}_state_dict": v for k, v in states.items()}, seed=0, device=device)
 
 
 def feature_config(cfg: dict) -> FeatureConfig:
@@ -106,127 +133,6 @@ class Spans:
                 sync(self.device)
         self.window.add_span(name, time.perf_counter() - t0)
         return out
-
-
-def _site_failed_tables(tables: dict) -> bool:
-    return len(tables.get("Nuclei", ())) == 0
-
-
-def features_window(engine, fcfg: FeatureConfig, batches: list, seconds: float, sample_k: int,
-                    synced: bool, after_batch=None, recording: bool = True) -> Window:
-    """Closed loop of feature extraction: each batch from host numpy through
-    ``segment_batch`` and ``measure_site_batch_dispatch``; the previous
-    batch is finalized (its four tables built) after the next one is
-    dispatched, as ``run_feature_extraction_job`` does. With ``synced``
-    each batch is finalized before the next is dispatched and every span
-    ends in a sync. Batches are dispatched until ``seconds`` have passed
-    (and the sampled batch ``sample_k`` has been); the window closes when
-    the batch in flight is finalized. ``after_batch(window)`` runs after
-    each finalize; spans are kept from the start, or, with ``recording``
-    False, from a batch dispatched after ``window.start_spans``."""
-    w = Window(sample_batch=sample_k, recording=recording)
-    span = Spans(w, engine.device, synced)
-    pending = None
-
-    def finalize(item):
-        k, n, handle, kept = item
-        tables = span("measure.finalize", measure_site_batch_finalize, handle)
-        w.sites += n
-        w.span_sites += n if kept else 0
-        w.failed += n - len(tables) + sum(_site_failed_tables(t) for t in tables)
-        w.batches += 1
-        w.batch_ends.append(time.perf_counter())
-        if k == w.sample_batch:
-            w.sample_outputs = tables
-        if after_batch is not None:
-            after_batch(w)
-
-    w.t_start = w.t_clock = w.span_t0 = time.perf_counter()
-    k = 0
-    while True:
-        images = batches[k % len(batches)]
-        kept = w.recording
-        labels = span("segment", engine.segment_batch, images)
-        lab = torch.stack(labels)
-        if k == w.sample_batch:
-            w.sample_input, w.sample_labels = k % len(batches), lab.cpu().numpy()
-        handle = span("measure.dispatch", measure_site_batch_dispatch, images, lab, fcfg,
-                      device=engine.device)
-        del labels, lab
-        if pending is not None:
-            finalize(pending)
-        pending = (k, len(images), handle, kept)
-        if synced:
-            finalize(pending)
-            pending = None
-        k += 1
-        if time.perf_counter() - w.t_clock >= seconds and k > w.sample_batch:
-            break
-    if pending is not None:
-        finalize(pending)
-    w.t_end = time.perf_counter()
-    return w
-
-
-def embed_window(engine, batches: list, seconds: float, sample_k: int, synced: bool,
-                 after_batch=None, recording: bool = True) -> Window:
-    """Closed loop of segment-and-embed: each batch from host numpy through
-    ``process_site_batch`` (segment, then pooled crops and embeddings back
-    on the host), until ``seconds`` have passed (and the sampled batch
-    ``sample_k`` has run); the window closes when the batch in flight
-    returns. Spans as in ``features_window``."""
-    w = Window(sample_batch=sample_k, recording=recording)
-    span = Spans(w, engine.device, synced)
-    segment, embed = engine.segment_batch, engine.embed_sites_pooled
-    state = {"k": 0}
-
-    def timed_segment(images):
-        labels = span("segment", segment, images)
-        if state["k"] == w.sample_batch:
-            w.sample_labels = torch.stack(labels).cpu().numpy()
-        return labels
-
-    engine.segment_batch = timed_segment
-    engine.embed_sites_pooled = lambda images, labels: span("embed", embed, images, labels)
-    try:
-        w.t_start = w.t_clock = w.span_t0 = time.perf_counter()
-        while True:
-            k = state["k"]
-            images = batches[k % len(batches)]
-            n = len(images)
-            kept = w.recording
-            results = engine.process_site_batch(list(range(k * n, (k + 1) * n)), images)
-            out = [results.get(i, {"status": "missing", "n_cells": 0}) for i in range(k * n, (k + 1) * n)]
-            w.sites += n
-            w.span_sites += n if kept else 0
-            w.failed += sum(r["status"] != "success" for r in out)
-            crops = sum(r["n_cells"] for r in out) * images.shape[-1]
-            w.crops += crops
-            w.span_crops += crops if kept else 0
-            w.batches += 1
-            w.batch_ends.append(time.perf_counter())
-            if k == w.sample_batch:
-                w.sample_input, w.sample_outputs = k % len(batches), out
-            if after_batch is not None:
-                after_batch(w)
-            state["k"] = k + 1
-            if time.perf_counter() - w.t_clock >= seconds and k >= w.sample_batch:
-                break
-        w.t_end = time.perf_counter()
-    finally:
-        del engine.segment_batch, engine.embed_sites_pooled
-    return w
-
-
-def warm(engine, fcfg, pipeline: str, images) -> None:
-    """One batch of the cell's own shape through the path the window
-    drives, so that nothing builds or compiles inside the window."""
-    if pipeline == "features":
-        lab = torch.stack(engine.segment_batch(images))
-        measure_site_batch_finalize(measure_site_batch_dispatch(images, lab, fcfg, device=engine.device))
-    else:
-        engine.process_site_batch(list(range(len(images))), images)
-    sync(engine.device)
 
 
 class KernelRecorder:

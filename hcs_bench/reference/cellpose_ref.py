@@ -1,9 +1,10 @@
 """The reference's segmentation, written from cellpose's definitions and
-independent of the program and of ``reference/plain``: CPnet's forward
-pass (cellpose ``resnet_torch.CPnet``) as plain functions over the state
-dict, cellpose's input normalisation, and cellpose's mask recovery in
-NumPy (``get_masks``, ``remove_bad_flow_masks``, the hole filling of
-``fill_holes_and_remove_small_masks``).
+independent of the program, of ``reference/plain`` and of the rest of the
+benchmark: cellpose's input normalisation, the rescale and the tiling of
+the network's input, and cellpose's mask recovery in NumPy (``get_masks``,
+``remove_bad_flow_masks``, the hole filling of
+``fill_holes_and_remove_small_masks``). The network itself is an argument,
+its forward pass over tiles (``networks/<name>.forward``).
 
 Where the engine states a rule of its own, the reference follows the rule,
 not the engine's code: masks at the network's resolution with the minimum
@@ -13,8 +14,10 @@ bilinear Euler steps; the flow-error QC against unit vectors towards each
 mask's centroid instead of cellpose's heat-diffusion flows; the rescale by
 ``diam_mean / diameter`` as an antialiased bilinear resize with half-pixel
 centres, and the labels back at the input size by nearest neighbour with
-half-pixel centres. A site that needs more than one tile is refused: the
-configurations run one."""
+half-pixel centres; a field larger than one tile covered by cellpose's
+tile grid and the tiles' outputs averaged under the engine's taper window
+(a ramp over 0.1 tile + 1 pixels from each edge); a field of one tile run
+as it is."""
 
 from __future__ import annotations
 
@@ -23,107 +26,6 @@ import math
 import numpy as np
 import scipy.ndimage as ndi
 import torch
-import torch.nn.functional as F
-
-# ------------------------------------------------------------------ network
-
-
-def cpnet_state(cp: dict, device) -> dict:
-    """A CPnet state dict in cellpose's key layout at the configuration's
-    widths: every convolution and Linear zero, every BatchNorm the
-    identity."""
-    nbase = [cp["n_channels"], *cp["features"]]
-    nbaseup = nbase[1:] + [nbase[-1]]
-    sd: dict = {}
-
-    def bn(p, c):
-        sd.update({f"{p}.weight": torch.ones(c), f"{p}.bias": torch.zeros(c),
-                   f"{p}.running_mean": torch.zeros(c), f"{p}.running_var": torch.ones(c),
-                   f"{p}.num_batches_tracked": torch.zeros((), dtype=torch.long)})
-
-    def conv(p, cin, cout, k, relu=True):
-        bn(f"{p}.0", cin)
-        q = f"{p}.2" if relu else f"{p}.1"
-        sd.update({f"{q}.weight": torch.zeros(cout, cin, k, k), f"{q}.bias": torch.zeros(cout)})
-
-    for n in range(len(nbase) - 1):
-        p = f"downsample.down.res_down_{n}"
-        conv(f"{p}.proj", nbase[n], nbase[n + 1], 1, relu=False)
-        for t in range(4):
-            conv(f"{p}.conv.conv_{t}", nbase[n] if t == 0 else nbase[n + 1], nbase[n + 1], 3)
-    for n in range(1, len(nbaseup)):
-        p, cin, cout = f"upsample.up.res_up_{n - 1}", nbaseup[n], nbaseup[n - 1]
-        conv(f"{p}.conv.conv_0", cin, cout, 3)
-        for t in range(1, 4):
-            conv(f"{p}.conv.conv_{t}.conv", cout, cout, 3)
-            sd.update({f"{p}.conv.conv_{t}.full.weight": torch.zeros(cout, nbaseup[-1]),
-                       f"{p}.conv.conv_{t}.full.bias": torch.zeros(cout)})
-        conv(f"{p}.proj", cin, cout, 1, relu=False)
-    conv("output", nbaseup[0], 3, 1)
-    return {k: v.to(device) for k, v in sd.items()}
-
-
-def _bn(x, sd, p):
-    return F.batch_norm(x, sd[f"{p}.running_mean"].float(), sd[f"{p}.running_var"].float(),
-                        sd[f"{p}.weight"].float(), sd[f"{p}.bias"].float(), False, 0.0, 1e-5)
-
-
-def _conv(x, sd, p, dtype):
-    w = sd[f"{p}.weight"]
-    return F.conv2d(x.to(dtype), w.to(dtype), sd[f"{p}.bias"].to(dtype), padding=w.shape[-1] // 2)
-
-
-def _batchconv(x, sd, p, dtype):
-    """BatchNorm, ReLU, convolution (cellpose ``batchconv``)."""
-    return _conv(F.relu(_bn(x.float(), sd, f"{p}.0")), sd, f"{p}.2", dtype)
-
-
-def _batchconv0(x, sd, p, dtype):
-    """BatchNorm, convolution (cellpose ``batchconv0``)."""
-    return _conv(_bn(x.float(), sd, f"{p}.0"), sd, f"{p}.1", dtype)
-
-
-def _resdown(x, sd, p, dtype):
-    x = _batchconv0(x, sd, f"{p}.proj", dtype) + _batchconv(
-        _batchconv(x, sd, f"{p}.conv.conv_0", dtype), sd, f"{p}.conv.conv_1", dtype)
-    return x + _batchconv(_batchconv(x, sd, f"{p}.conv.conv_2", dtype), sd, f"{p}.conv.conv_3", dtype)
-
-
-def _convstyle(style, x, sd, p, dtype, y=None):
-    if y is not None:
-        x = x + y
-    feat = F.linear(style, sd[f"{p}.full.weight"].float(), sd[f"{p}.full.bias"].float())
-    return _batchconv(x + feat[:, :, None, None].to(x.dtype), sd, f"{p}.conv", dtype)
-
-
-def _resup(x, y, style, sd, p, dtype):
-    x = _batchconv0(x, sd, f"{p}.proj", dtype) + _convstyle(
-        style, _batchconv(x, sd, f"{p}.conv.conv_0", dtype), sd, f"{p}.conv.conv_1", dtype, y=y)
-    return x + _convstyle(style, _convstyle(style, x, sd, f"{p}.conv.conv_2", dtype), sd,
-                          f"{p}.conv.conv_3", dtype)
-
-
-def cpnet_features(x: torch.Tensor, sd: dict, depth: int, dtype=torch.float32) -> torch.Tensor:
-    """CPnet up to its head: (N, C, H, W) -> (N, nbase[1], H, W).
-    Convolutions in ``dtype``, BatchNorm and the style in float32."""
-    xd = []
-    for n in range(depth):
-        y = x.to(dtype) if n == 0 else F.max_pool2d(xd[-1], 2)
-        xd.append(_resdown(y, sd, f"downsample.down.res_down_{n}", dtype))
-    style = xd[-1].float().mean(dim=(2, 3))
-    style = style / torch.sqrt((style**2).sum(dim=1, keepdim=True))
-    x = _resup(xd[-1], xd[-1], style, sd, f"upsample.up.res_up_{depth - 1}", dtype)
-    for n in range(depth - 2, -1, -1):
-        x = F.interpolate(x, scale_factor=2, mode="nearest")
-        x = _resup(x, xd[n], style, sd, f"upsample.up.res_up_{n}", dtype)
-    return x
-
-
-def cpnet(x: torch.Tensor, sd: dict, depth: int, dtype=torch.float32) -> torch.Tensor:
-    """CPnet (cellpose ``resnet_torch.CPnet``) on (N, C, H, W) -> (N, 3, H,
-    W): [flow_y, flow_x, cellprob logit]; the head in float32."""
-    return _batchconv(cpnet_features(x, sd, depth, dtype).float(), sd, "output", torch.float32)
-
 
 # ------------------------------------------------------------ network input
 
@@ -156,31 +58,71 @@ def network_size(h0: int, w0: int, diam_mean: float, diameter: float, tile: int)
     return max(tile // 4, int(round(h0 * s))), max(tile // 4, int(round(w0 * s)))
 
 
-def network_input(sites: np.ndarray, cp: dict, diameter: float) -> tuple[np.ndarray, int, int]:
-    """(B, H, W, C) raw sites -> (B, n_channels, tile, tile) f32: the first
-    ``n_channels`` channels normalised, rescaled to (h, w), zero-padded to
-    the tile; and (h, w)."""
+def network_input(sites: np.ndarray, net: dict, diameter: float) -> tuple[np.ndarray, int, int]:
+    """(B, H, W, C) raw sites -> (B, n_channels, max(h, tile), max(w,
+    tile)) f32: the first ``n_channels`` channels normalised, rescaled to
+    (h, w), zero-padded to at least one tile; and (h, w)."""
     b, h0, w0, _ = sites.shape
-    tile = cp["tile"]
-    h1, w1 = network_size(h0, w0, cp["diam_mean"], diameter, tile)
-    if h1 > tile or w1 > tile:
-        raise ValueError(f"{h1}x{w1} at the network's scale needs more than one {tile} tile")
+    tile = net["tile"]
+    h1, w1 = network_size(h0, w0, net["diam_mean"], diameter, tile)
     wy, wx = resize_weights(h0, h1), resize_weights(w0, w1)
-    x = np.zeros((b, cp["n_channels"], tile, tile), np.float32)
+    x = np.zeros((b, net["n_channels"], max(h1, tile), max(w1, tile)), np.float32)
     for i, site in enumerate(sites):
-        z = normalize(site[..., : cp["n_channels"]])
+        z = normalize(site[..., : net["n_channels"]])
         x[i, :, :h1, :w1] = np.einsum("yh,hwc,xw->cyx", wy, z, wx, optimize=True)
     return x, h1, w1
 
 
-def flows_at_network_resolution(sites: np.ndarray, sd: dict, cp: dict, diameter: float, device,
-                                dtype=torch.float32) -> tuple[np.ndarray, np.ndarray]:
-    """(B, H, W, C) raw sites -> flows (B, 2, h, w) and cellprob (B, h, w)
-    at the rescaled size."""
-    x, h1, w1 = network_input(sites, cp, diameter)
+def tile_starts(size: int, tile: int, overlap: float) -> list[int]:
+    """Tile offsets covering [0, size): cellpose's grid, a stride of
+    int(tile x (1 - overlap)) and a last tile flush with the end."""
+    if size <= tile:
+        return [0]
+    stride = max(1, int(tile * (1 - overlap)))
+    starts = list(range(0, size - tile + 1, stride))
+    if starts[-1] != size - tile:
+        starts.append(size - tile)
+    return starts
+
+
+def taper(tile: int) -> np.ndarray:
+    """The engine's window over a tile: on each axis a ramp from 1 / (0.1
+    tile + 1) at the edge up to 1, 0.1 tile + 1 pixels in; their product."""
+    k = np.arange(tile)
+    ramp = np.minimum(np.minimum(k + 1, tile - k) / (0.1 * tile + 1), 1.0)
+    return ramp[:, None] * ramp[None, :]
+
+
+def network_output(x: np.ndarray, forward, net: dict, device) -> np.ndarray:
+    """(B, C, hp, wp) network input -> (B, 3, hp, wp) f32 output. A field of
+    one tile goes through ``forward`` as it is; a larger one tile by tile
+    of cellpose's grid (the batch's tiles at one place a call), the tiles'
+    outputs averaged under ``taper`` in float64."""
+    tile = net["tile"]
+    ys = tile_starts(x.shape[2], tile, net["tile_overlap"])
+    xs = tile_starts(x.shape[3], tile, net["tile_overlap"])
     with torch.no_grad():
-        out = cpnet(torch.as_tensor(x, device=device), sd, len(cp["features"]), dtype)
-    out = out.float().cpu().numpy()[:, :, :h1, :w1]
+        if len(ys) == len(xs) == 1:
+            return forward(torch.as_tensor(x, device=device)).float().cpu().numpy()
+        win = taper(tile)
+        acc = np.zeros((x.shape[0], 3) + x.shape[2:])
+        wsum = np.zeros(x.shape[2:])
+        for y in ys:
+            for x0 in xs:
+                part = torch.as_tensor(np.ascontiguousarray(x[:, :, y : y + tile, x0 : x0 + tile]), device=device)
+                acc[:, :, y : y + tile, x0 : x0 + tile] += forward(part).float().cpu().numpy() * win
+                wsum[y : y + tile, x0 : x0 + tile] += win
+    return (acc / wsum).astype(np.float32)
+
+
+def flows_at_network_resolution(sites: np.ndarray, forward, net: dict, diameter: float,
+                                device) -> tuple[np.ndarray, np.ndarray]:
+    """(B, H, W, C) raw sites -> flows (B, 2, h, w) and cellprob (B, h, w)
+    at the rescaled size; ``forward`` is the segmenter's forward pass over
+    tiles and ``net`` its section of the configuration (``n_channels``,
+    ``diam_mean``, ``tile``, ``tile_overlap``)."""
+    x, h1, w1 = network_input(sites, net, diameter)
+    out = network_output(x, forward, net, device)[:, :, :h1, :w1]
     return out[:, :2], out[:, 2]
 
 
@@ -281,11 +223,12 @@ def nearest_up(lab: np.ndarray, h0: int, w0: int) -> np.ndarray:
     return lab[iy][:, ix]
 
 
-def segment(sites: np.ndarray, sd: dict, cp: dict, engine: dict, device,
-            dtype=torch.float32) -> np.ndarray:
-    """(B, H, W, C) raw sites -> (B, H, W) int32 labels."""
+def segment(sites: np.ndarray, forward, net: dict, engine: dict, device) -> np.ndarray:
+    """(B, H, W, C) raw sites -> (B, H, W) int32 labels, through the
+    segmenter's ``forward`` over tiles (its section of the configuration:
+    ``net``) and the engine's settings."""
     b, h0, w0, _ = sites.shape
-    dp, prob = flows_at_network_resolution(sites, sd, cp, engine["diameter"], device, dtype)
+    dp, prob = flows_at_network_resolution(sites, forward, net, engine["diameter"], device)
     h1, w1 = prob.shape[1:]
     min_size = engine["min_size"]
     min_low = max(1, int(round(min_size * h1 * w1 / (h0 * w0)))) if min_size else 0

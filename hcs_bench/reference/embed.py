@@ -1,7 +1,6 @@
 """The reference's embedding: each kept cell's centroid and edge rule from
-the reference's own labels, masked crops, the reference's preprocessing
-(gray replicated to RGB) and EfficientNetV2 from the frozen plain copy,
-unfolded, in its configured compute dtype."""
+the reference's own labels, masked crops, and the embedder's forward pass
+over them (``networks/<name>.forward``: its preprocessing and network)."""
 
 from __future__ import annotations
 
@@ -9,7 +8,6 @@ import numpy as np
 import torch
 
 from hcs_bench.reference.plain.kernels.crops import gather_crops, in_bounds, label_centroids
-from hcs_bench.reference.plain.models.effnetv2 import preprocess_crops
 
 
 def kept_cells(labels: np.ndarray, max_cells: int, box: int, device) -> list[np.ndarray]:
@@ -25,15 +23,15 @@ def kept_cells(labels: np.ndarray, max_cells: int, box: int, device) -> list[np.
 
 
 @torch.no_grad()
-def embed(model, images: np.ndarray, labels: np.ndarray, slots: np.ndarray, box: int, size: int,
-          device, chunk: int = 32) -> np.ndarray:
-    """(k, 5) slots (site, label, channel, cy, cx) -> (k, 1280) f32
-    embeddings, ``chunk`` crops a network call."""
+def embed(forward, images: np.ndarray, labels: np.ndarray, slots: np.ndarray, box: int, device,
+          chunk: int = 32) -> np.ndarray:
+    """(k, 5) slots (site, label, channel, cy, cx) -> (k, D) f32
+    embeddings, ``chunk`` crops a call of ``forward``."""
     chw = torch.as_tensor(images.astype(np.float32), device=device).permute(0, 3, 1, 2).contiguous()
     lab = torch.as_tensor(labels, device=device)
     idx = torch.as_tensor(slots.T, device=device)
     out = []
     for s in range(0, idx.shape[1], chunk):
         crops = gather_crops(chw, lab, *idx[:, s : s + chunk], box=box)
-        out.append(model(preprocess_crops(crops, size, n_channels=3)).float().cpu())
+        out.append(forward(crops).float().cpu())
     return torch.cat(out).numpy()

@@ -1,7 +1,9 @@
-"""The controls' lower precisions, put on the reference in the program's
-place: convolutions in fp8 (e4m3) for a network the configuration runs in
-bfloat16, and the measurement's image planes held in bfloat16 where the
-configuration measures in float32."""
+"""The roundings of the controls' lower precisions, put on the reference in
+the program's place: a tensor rounded to fp8 (e4m3) under one scale, for a
+network the configuration runs in bfloat16 (each network's module,
+``networks/<name>.py``, picks what its control rounds: ``fp8_convolutions``
+for a convolutional one), and the measurement's image planes held in
+bfloat16 where the configuration measures in float32."""
 
 from __future__ import annotations
 
@@ -15,7 +17,7 @@ FP8 = torch.float8_e4m3fn
 FP8_MAX = 448.0
 
 
-def _fp8(t: torch.Tensor) -> torch.Tensor:
+def fp8(t: torch.Tensor) -> torch.Tensor:
     """``t`` rounded to e4m3 under one per-tensor scale (its largest
     magnitude onto e4m3's largest finite value), back in bfloat16."""
     scale = t.detach().abs().amax().float().clamp(min=1e-30) / FP8_MAX
@@ -29,7 +31,7 @@ def fp8_convolutions():
     real = F.conv2d
 
     def conv2d(x, weight, bias=None, *args, **kw):
-        out = real(_fp8(x), _fp8(weight), None if bias is None else bias.to(torch.bfloat16), *args, **kw)
+        out = real(fp8(x), fp8(weight), None if bias is None else bias.to(torch.bfloat16), *args, **kw)
         return out.to(x.dtype)
 
     F.conv2d = conv2d

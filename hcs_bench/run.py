@@ -2,11 +2,13 @@
 
     python3 hcs_bench/run.py --workload <cell> --seed <n> --seconds <s> --trace <0|1>
 
-Runs one cell of ``BENCHMARK.json``: makes the cell's inputs and weights
-from the seed, builds the program's engine from the cell's configuration
-file, warms one batch of the cell's own shape, then drives the program in a
-closed loop of site batches for ``--seconds`` (the window closes when the
-batch in flight is done) and prints one JSON line last on standard output.
+Runs one cell of ``BENCHMARK.json``: makes the cell's inputs and the
+weights of the networks its configuration names (``networks/<name>.py``)
+from the seed, builds the program's engine from the configuration file,
+warms one batch of the cell's own shape, then drives the configuration's
+pipeline (``pipelines/<name>.py``) in a closed loop of site batches for
+``--seconds`` (the window closes when the batch in flight is done) and
+prints one JSON line last on standard output.
 With ``--trace 0`` its metrics are the cell's end-to-end metrics; with
 ``--trace 1`` the window's first batch runs under torch.profiler, then,
 with the profiler stopped, batches run for ``--seconds`` more with each
@@ -70,40 +72,26 @@ def reader(metric: str):
 
 
 def model_flops(cfg: dict, traffic: dict) -> dict:
-    """The published models' FLOPs of one site's segmentation and, in an
-    embed cell, of one crop's embedding (the RGB network at its input
-    size)."""
-    from hcs_bench import yardstick
+    """The published models' FLOPs of one unit of each network's work: a
+    site's segmentation and, in a cell with an embedder, a crop's embedding
+    (``networks.ROLES``)."""
+    from hcs_bench import networks
 
-    eng = cfg["engine"]
-    out = {"site": yardstick.cpnet_site_flops(cfg["cellpose"], eng["diameter"], traffic["size"],
-                                              traffic["size"])}
-    if cfg["pipeline"] == "embed":
-        out["crop"] = 2.0 * yardstick.effnet_cost(cfg["effnet"], eng["embed_size"], in_ch=3)[0]
-    return out
+    return {networks.ROLES[role]: net.flops(cfg, traffic) for role, net in networks.named(cfg)}
 
 
-def inputs_and_weights(spec: dict, seed: int, device) -> tuple[list, dict, dict | None]:
+def inputs_and_weights(spec: dict, seed: int, device) -> tuple[list, dict]:
     """A run's batches (host numpy, from the seed) and the state dicts of
-    its networks (made on ``device``; EfficientNetV2 only in an embed
-    cell)."""
-    import numpy as np
-
-    from hcs_bench.traffic.generator import make_batches, nuclei_labels
-    from hcs_bench.weights import calibrated_effnet, calibration_crops, effnet_config, gradient_cpnet
+    its networks (made on ``device``), by the configuration section each
+    network's sizes are in."""
+    from hcs_bench import networks
+    from hcs_bench.traffic.generator import make_batches
 
     cfg, traffic = spec["config"], spec["traffic"]
-    wcfg, eng = cfg["weights"], cfg["engine"]
     batches, nuclei = make_batches(traffic, seed)
-    cp_state = gradient_cpnet(cfg["cellpose"], device, wcfg["gain"], wcfg["cellprob_at"], seed,
-                              wcfg["noise"], batches[0], eng["diameter"], wcfg["cellprob_noise"])
-    ef_state = None
-    if cfg["pipeline"] == "embed":
-        lab0 = np.stack([nuclei_labels(traffic, c) for c in nuclei[0]])
-        crops = calibration_crops(batches[0], lab0, wcfg["calibration_crops"], eng["box_size"], device)
-        ef_state = calibrated_effnet(effnet_config(cfg), seed, crops, eng["embed_size"], device,
-                                     wcfg["residual_scale"])
-    return batches, cp_state, ef_state
+    states = {net.SECTION: net.weights(cfg, traffic, batches, nuclei, seed, device)
+              for _, net in networks.named(cfg)}
+    return batches, states
 
 
 def forbidden_modules() -> list[str]:
@@ -115,7 +103,7 @@ def run_cell(spec: dict, seed: int, seconds: float, trace: bool, device, t0: flo
     (without ``device``' card fields)."""
     import torch
 
-    from hcs_bench import program, trace as trace_mod, yardstick
+    from hcs_bench import pipelines, program, trace as trace_mod, yardstick
     from hcs_bench.compare import Side, numbers
     from hcs_bench.check import judge
     from hcs_bench.records import Run
@@ -123,13 +111,14 @@ def run_cell(spec: dict, seed: int, seconds: float, trace: bool, device, t0: flo
 
     cfg, traffic = spec["config"], spec["traffic"]
     pipeline = cfg["pipeline"]
+    pipe = pipelines.load(pipeline)
     marks = [("start", time.perf_counter())]
-    batches, cp_state, ef_state = inputs_and_weights(spec, seed, device)
+    batches, states = inputs_and_weights(spec, seed, device)
     marks.append(("inputs and weights", time.perf_counter()))
-    engine = program.build_engine(cfg, cp_state, ef_state, device)
+    engine = program.build_engine(cfg, states, device)
     marks.append(("engine", time.perf_counter()))
-    fcfg = program.feature_config(cfg) if pipeline == "features" else None
-    program.warm(engine, fcfg, pipeline, batches[0])
+    pipe.batch(engine, cfg, batches[0])  # the warm batch: nothing builds inside the window
+    program.sync(device)
     marks.append(("warm batch (and the first run's build)", time.perf_counter()))
     sample_k = int(seed_sequence(seed, 1).integers(0, SAMPLE_BATCHES))
     cuda = torch.device(device).type == "cuda"
@@ -165,12 +154,7 @@ def run_cell(spec: dict, seed: int, seconds: float, trace: bool, device, t0: flo
         if w.batches >= TRACE_BATCHES:
             stop_trace(w)
 
-    if pipeline == "features":
-        w = program.features_window(engine, fcfg, batches, seconds, sample_k, trace, after_batch,
-                                    recording=not trace)
-    else:
-        w = program.embed_window(engine, batches, seconds, sample_k, trace, after_batch,
-                                 recording=not trace)
+    w = pipe.window(engine, cfg, batches, seconds, sample_k, trace, after_batch, recording=not trace)
     window_s = w.t_end - w.t_start
     peak = torch.cuda.max_memory_allocated(device) if cuda else 0
 
@@ -207,7 +191,7 @@ def run_cell(spec: dict, seed: int, seconds: float, trace: bool, device, t0: flo
     del engine, w, batches, prof, recorder
     if cuda:
         torch.cuda.empty_cache()
-    ref = Side(cfg, cp_state, ef_state, device)
+    ref = Side(cfg, states, device)
     nums = numbers(cfg, images, prog_labels, prog_out, ref, seed)
     result["correct"], result["checked"] = judge(nums, spec["limits"])
     return result

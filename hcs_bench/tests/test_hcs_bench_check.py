@@ -42,6 +42,41 @@ def test_label_gap_pools_the_batch():
     assert check.label_px_off(np.stack([lab, empty]), np.stack([lab, lab])) == pytest.approx(0.5)
 
 
+def test_objects_off_is_zero_for_the_same_objects_in_another_numbering():
+    lab = two_discs()
+    other = np.where(lab > 0, 3 - lab, 0)
+    assert check.objects_off_by_site(other[None], lab[None]).tolist() == [0.0]
+
+
+def test_objects_off_counts_a_split_and_a_lost_object_on_either_side():
+    lab = two_discs()
+    split = lab.copy()
+    split[(lab == 2) & (np.arange(40)[None, :] > 28)] = 3
+    # the program's 2 keeps the larger part of disc 2 (IoU over 0.5), its 3
+    # has no partner: one of its three objects
+    assert check.objects_off_by_site(split[None], lab[None])[0] == pytest.approx(1 / 3)
+    lost = np.where(lab == 1, 0, lab)
+    assert check.objects_off_by_site(lost[None], lab[None])[0] == pytest.approx(1 / 2)
+    assert check.objects_off_by_site(lab[None], lost[None])[0] == pytest.approx(1 / 2)
+
+
+def test_objects_off_at_iou_one_half():
+    lab = np.zeros((10, 10), np.int32)
+    lab[0:4, 0:4] = 1
+    half = np.zeros_like(lab)
+    half[0:4, 0:2] = 1  # IoU 8/16
+    assert check.objects_off_by_site(half[None], lab[None])[0] == 0.0
+    half[0, 0] = 0  # IoU 7/16
+    assert check.objects_off_by_site(half[None], lab[None])[0] == 1.0
+
+
+def test_objects_off_empty_and_missing_sites():
+    lab, empty = two_discs(), np.zeros((40, 40), np.int32)
+    assert check.objects_off_by_site(np.stack([empty, lab]), np.stack([empty, empty])).tolist() == [0.0, 1.0]
+    # a site missing on the program's side reads 1
+    assert check.objects_off_by_site(lab[None], np.stack([lab, lab])).tolist() == [0.0, 1.0]
+
+
 def test_pointer_steps_reach_the_centre_and_one_seed_a_disc():
     lab = two_discs()
     flows = np.zeros((2, 40, 40))
@@ -81,13 +116,6 @@ def test_resize_rows_sum_to_one_and_nearest_up_is_half_pixel():
     assert w.shape == (184, 1080) and np.allclose(w.sum(axis=1), 1.0)
     up = cellpose_ref.nearest_up(np.arange(4).reshape(2, 2), 5, 5)
     assert up[:, 0].tolist() == [0, 0, 2, 2, 2]
-
-
-def test_cpnet_state_has_cellpose_keys_at_the_published_widths():
-    sd = cellpose_ref.cpnet_state({"n_channels": 2, "features": [32, 64, 128, 256]}, "cpu")
-    assert sd["downsample.down.res_down_0.proj.1.weight"].shape == (32, 2, 1, 1)
-    assert sd["upsample.up.res_up_3.conv.conv_1.full.weight"].shape == (256, 256)
-    assert sd["output.2.weight"].shape == (3, 32, 1, 1)
 
 
 def test_object_intensity_by_hand():

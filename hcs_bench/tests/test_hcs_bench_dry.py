@@ -2,7 +2,9 @@
 harness's look for a card skipped, the program on its plain forms, the
 check against the reference. Then the timed path broken underneath, once
 for each fault a cell can have, and the control in the program's place:
-``correct`` has to come out false."""
+``correct`` has to come out false. The same for the ``segment`` pipeline,
+which no cell runs yet, on a spec built here: the first cell's networks
+and traffic, with limits set from the tiny size's readings."""
 
 from __future__ import annotations
 
@@ -16,6 +18,7 @@ import torch
 from hcs_bench import program, run
 from hcs_bench.check import judge
 from hcs_bench.compare import Side, numbers
+from hcs_bench.pipelines import segment
 from hcs_bench.tests.tiny import tiny
 from hcs_bench.traffic.generator import seed_sequence
 
@@ -26,26 +29,54 @@ CELLS = [w["name"] for w in SPEC["workloads"]]
 SEED = next(s for s in range(2**31, 2**31 + 100) if seed_sequence(s, 1).integers(0, run.SAMPLE_BATCHES) == 1)
 
 
+# The segment pipeline's limits at the tiny size: the program read
+# labels_px_off 0.0009-0.0042 and objects_off 0 on four seeds, the control
+# 0.085-0.43 and 0.11-0.33 (one nucleus of the nine a site: 0.11).
+SEGMENT_LIMITS = {"labels_px_off": 0.04, "objects_off": 0.05}
+# The segment pipeline's rate, which BENCHMARK.json gains with the first
+# cell that runs the pipeline; its bound plays no part on the CPU.
+SEGMENT_RATE = {"name": "segment_sites_per_s", "unit": "sites/s", "better": "higher", "bound": 0.25,
+                "source": "host_clock"}
+
+
+def segment_spec() -> dict:
+    """The first cell's networks and traffic through the ``segment``
+    pipeline at the tiny size, with its end-to-end metrics and the limits
+    above."""
+    spec = tiny(run.load_cell("features.confluent81"))
+    spec["config"]["pipeline"] = "segment"
+    spec["end_to_end"] = [SEGMENT_RATE] + [m for m in SPEC["end_to_end"]
+                                           if m["name"] in ("peak_mem_gib", "setup_s")]
+    spec["per_layer"] = [m for m in SPEC["per_layer"] if m["name"] == "segment.s_per_site.features"]
+    spec["limits"] = dict(SEGMENT_LIMITS)
+    return spec
+
+
+def spec_of(cell: str) -> dict:
+    """A cell's spec at the tiny size; ``segment``: ``segment_spec()``."""
+    return segment_spec() if cell == "segment" else tiny(run.load_cell(cell))
+
+
 def dry(cell: str, trace: bool = False, seconds: float = 0.1) -> dict:
-    return run.run_cell(tiny(run.load_cell(cell)), SEED, seconds, trace, CPU, t0=time.perf_counter())
+    return run.run_cell(spec_of(cell), SEED, seconds, trace, CPU, t0=time.perf_counter())
 
 
-@pytest.mark.parametrize("cell", CELLS)
+@pytest.mark.parametrize("cell", CELLS + ["segment"])
 def test_cell_runs_and_is_correct(cell):
     res = dry(cell)
     assert res["correct"], res["checked"]
     assert res["attempted"] >= 2 * 2 and res["failed"] == 0
-    e2e = [m["name"] for m in SPEC["end_to_end"] if cell in m.get("workloads", CELLS)]
+    e2e = [m["name"] for m in spec_of(cell)["end_to_end"]]
     assert sorted(res["metrics"]) == sorted(e2e)
     assert all(v["value"] > 0 for k, v in res["metrics"].items() if k != "peak_mem_gib")
-    assert list(res["checked"]) == list(run.load_cell(cell)["limits"])
+    assert list(res["checked"]) == list(spec_of(cell)["limits"])
 
 
-@pytest.mark.parametrize("cell", ["features.confluent81", "embed.confluent81"])
+@pytest.mark.parametrize("cell", ["features.confluent81", "embed.confluent81", "segment"])
 def test_traced_run_reads_its_spans(cell):
     res = dry(cell, trace=True)
     assert res["correct"]
-    names = [m["name"] for m in SPEC["per_layer"] if cell in m["workloads"]]
+    names = [m["name"] for m in spec_of(cell)["per_layer"]]
     # on the CPU only the benchmark's spans can be read; the trace's
     # metrics need the card's trace and are left out
     assert any(n.startswith("segment.s_per_site") for n in res["metrics"])
@@ -68,9 +99,11 @@ def stale_labels(monkeypatch):
 
 def half_batch(monkeypatch):
     """Half of the batch left out: only the first half of the sites' results
-    come back."""
+    (tables, embeddings, masks on the host) come back."""
     finalize, process = program.measure_site_batch_finalize, program.SegmentEmbedEngine.process_site_batch
     monkeypatch.setattr(program, "measure_site_batch_finalize", lambda h: finalize(h)[: h.n_sites // 2])
+    host = segment.host_labels
+    monkeypatch.setattr(segment, "host_labels", lambda labels: host(labels)[: len(labels) // 2])
 
     def half(self, ids, images, timer=None):
         out = process(self, ids, images)
@@ -81,8 +114,15 @@ def half_batch(monkeypatch):
 
 def altered_answer(monkeypatch):
     """An answer altered where it is produced: the first site's nucleus
-    areas each one pixel more, or its embeddings with their signs flipped."""
+    areas each one pixel more, its embeddings with their signs flipped, or
+    its first object's mask erased on the host."""
     finalize, process = program.measure_site_batch_finalize, program.SegmentEmbedEngine.process_site_batch
+    host = segment.host_labels
+
+    def altered_masks(labels):
+        out = host(labels)
+        out[0][out[0] == 1] = 0
+        return out
 
     def altered_tables(h):
         out = finalize(h)
@@ -97,25 +137,26 @@ def altered_answer(monkeypatch):
 
     monkeypatch.setattr(program, "measure_site_batch_finalize", altered_tables)
     monkeypatch.setattr(program.SegmentEmbedEngine, "process_site_batch", altered_embeddings)
+    monkeypatch.setattr(segment, "host_labels", altered_masks)
 
 
 @pytest.mark.parametrize("fault", [stale_labels, half_batch, altered_answer], ids=lambda f: f.__name__)
-@pytest.mark.parametrize("cell", ["features.confluent81", "embed.confluent81"])
+@pytest.mark.parametrize("cell", ["features.confluent81", "embed.confluent81", "segment"])
 def test_fault_is_not_correct(cell, fault, monkeypatch):
     fault(monkeypatch)
     res = dry(cell)
     assert not res["correct"], res["checked"]
 
 
-@pytest.mark.parametrize("cell", ["features.confluent81", "embed.confluent81"])
+@pytest.mark.parametrize("cell", ["features.confluent81", "embed.confluent81", "segment"])
 def test_control_is_not_correct(cell):
     """The control (the reference in the next lower precision, in the
     program's place) fails the cell's limits, at the tiny size."""
-    spec = tiny(run.load_cell(cell))
+    spec = spec_of(cell)
     cfg = spec["config"]
-    batches, cp_state, ef_state = run.inputs_and_weights(spec, SEED, CPU)
-    ref = Side(cfg, cp_state, ef_state, CPU)
-    low = Side(cfg, cp_state, ef_state, CPU, lower=True)
+    batches, states = run.inputs_and_weights(spec, SEED, CPU)
+    ref = Side(cfg, states, CPU)
+    low = Side(cfg, states, CPU, lower=True)
     nums = numbers(cfg, batches[1], low.labels(batches[1]), None, ref, SEED, control=low)
     ok, checked = judge(nums, spec["limits"])
     assert not ok, checked

@@ -1,6 +1,9 @@
 """Nothing under hcs_bench/ imports JAX or the JAX package (top-level
 module names compared whole), the reference imports nothing of the
-program, and nothing reads the TPU benchmark's files."""
+program, and nothing reads the TPU benchmark's files. The plug-ins
+(``networks/``, ``pipelines/``) import nothing of the program, and the
+harness's own modules name no network and branch on no pipeline, so that a
+new network or pipeline comes as new files."""
 
 from __future__ import annotations
 
@@ -74,3 +77,39 @@ def test_own_references_share_no_code_with_the_plain_copy(name):
     forms, nor of the benchmark's other modules."""
     used = module_imports(BENCH / "reference" / name)
     assert not [m for m in used if m.startswith("hcs_bench")]
+
+
+@pytest.mark.parametrize("path", [p for p in FILES if p.parent.name in ("networks", "pipelines")],
+                         ids=lambda p: str(p.relative_to(BENCH)))
+def test_plugins_import_nothing_of_the_program(path):
+    """A plug-in reaches the program through ``program.py`` (its calls, or
+    ``program.resolve`` of a dotted path), never by an import."""
+    assert "saguaro_tpu_torch" not in top_level_imports(path)
+
+
+HARNESS = ["run.py", "program.py", "compare.py", "calibrate.py", "weights.py", "yardstick.py"]
+
+
+@pytest.mark.parametrize("name", HARNESS)
+def test_harness_names_no_network(name):
+    text = (BENCH / name).read_text()
+    for word in ("gradient_cpnet", "EffNetV2", "CellposeConfig", "cpnet_", "effnet", "CPnet"):
+        assert word not in text, word
+
+
+@pytest.mark.parametrize("name", HARNESS)
+def test_harness_branches_on_no_pipeline(name):
+    """No comparison with a pipeline's or a network's name."""
+    names = {p.stem for d in ("networks", "pipelines") for p in (BENCH / d).glob("*.py")}
+    for node in ast.walk(ast.parse((BENCH / name).read_text())):
+        if isinstance(node, ast.Compare):
+            consts = [c.value for c in [node.left, *node.comparators] if isinstance(c, ast.Constant)]
+            assert not set(consts) & names, ast.unparse(node)
+
+
+def test_cpnet_shares_no_code_with_the_plain_copy():
+    """CPnet's forward pass, written from cellpose's definitions, uses
+    nothing of the frozen copy of the program's plain forms but its switch
+    to full float32 (``plain/device.full_f32``)."""
+    used = module_imports(BENCH / "networks" / "cpnet.py")
+    assert {m for m in used if m.startswith("hcs_bench.reference.plain")} <= {"hcs_bench.reference.plain.device"}

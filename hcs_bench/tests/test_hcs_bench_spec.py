@@ -3,6 +3,7 @@ found by name under ``hcs_bench/``."""
 
 from __future__ import annotations
 
+import importlib
 import importlib.util
 import json
 import re
@@ -60,10 +61,28 @@ def test_config_file(config):
     body = json.loads(path.read_text())
     assert body["name"] == config["name"] and body["source"] == config["source"]
     assert body["reduced"] == config["reduced"] and len(config["reduced"]) <= 16
-    assert body["pipeline"] in ("features", "embed")
+    assert (BENCH / "pipelines" / f"{body['pipeline']}.py").is_file()
     assert any(w["config"] == config["name"] for w in SPEC["workloads"])
     files = [c["file"] for c in SPEC["configs"]]
     assert files.count(config["file"]) == 1
+
+
+@pytest.mark.parametrize("config", SPEC["configs"], ids=lambda c: c["name"])
+def test_config_names_its_plugins(config):
+    """The pipeline and each network a configuration names are files under
+    ``pipelines/`` and ``networks/``; each network's section names the
+    program's config class by a dotted path into the port."""
+    body = json.loads((ROOT / config["file"]).read_text())
+    assert NAME.match(body["pipeline"]) and (BENCH / "pipelines" / f"{body['pipeline']}.py").is_file()
+    assert "segmenter" in body
+    for role in ("segmenter", "embedder"):
+        if role in body:
+            assert NAME.match(body[role]) and (BENCH / "networks" / f"{body[role]}.py").is_file()
+            net = importlib.import_module(f"hcs_bench.networks.{body[role]}")
+            assert body[net.SECTION]["class"].startswith("saguaro_tpu_torch.")
+    for key, section in body.items():
+        if isinstance(section, dict) and "class" in section:
+            assert re.match(r"^saguaro_tpu_torch(\.[A-Za-z_][A-Za-z0-9_]*)+$", section["class"]), key
 
 
 @pytest.mark.parametrize("cell", SPEC["workloads"], ids=lambda c: c["name"])

@@ -6,6 +6,9 @@ from __future__ import annotations
 import torch
 
 from hcs_bench import program
+from hcs_bench.pipelines import embed, features, segment
+
+CFG = {"channels": ["DNA"], "features": {}}
 
 
 class Clock:
@@ -41,7 +44,7 @@ def fake_features(monkeypatch, clock, sites=4, size=8):
 def test_features_window_closes_after_the_batch_in_flight(monkeypatch):
     clock = Clock()
     engine, batches = fake_features(monkeypatch, clock)
-    w = program.features_window(engine, None, batches, 5.0, 0, synced=False)
+    w = features.window(engine, CFG, batches, 5.0, 0, synced=False)
     # batch k dispatched at 1.5, 3.25 (after finalizing k-1), 5.0 >= 5: stop;
     # the last finalize closes the window at 5.25
     assert (w.batches, w.sites, w.failed) == (3, 12, 3)
@@ -54,7 +57,7 @@ def test_features_window_closes_after_the_batch_in_flight(monkeypatch):
 def test_features_window_runs_to_the_sampled_batch(monkeypatch):
     clock = Clock()
     engine, batches = fake_features(monkeypatch, clock)
-    w = program.features_window(engine, None, batches, 0.1, 2, synced=False)
+    w = features.window(engine, CFG, batches, 0.1, 2, synced=False)
     assert w.batches == 3 and w.sample_input == 0 and w.sample_outputs is not None
     assert w.sample_labels.shape == (4, 8, 8)
 
@@ -79,7 +82,7 @@ def test_embed_window_rate(monkeypatch):
             return {i: {"status": "success" if i % 4 else "empty", "n_cells": 3} for i in ids}
 
     batches = [torch.zeros((4, 2, 2, 5)).numpy()]
-    w = program.embed_window(Engine(), batches, 5.0, 1, synced=False)
+    w = embed.window(Engine(), CFG, batches, 5.0, 1, synced=False)
     assert (w.batches, w.sites, w.failed, w.crops) == (3, 12, 3, 12 * 3 * 5)
     assert abs((w.t_end - w.t_start) - 6.0) < 1e-9
     assert w.sample_input == 0 and len(w.sample_outputs) == 4
@@ -97,9 +100,34 @@ def test_traced_stretch_keeps_spans_after_the_profiler(monkeypatch):
             clock.t += 10.0  # the profiler's stop, outside the stretch
             w.start_spans(clock())
 
-    w = program.features_window(engine, None, batches, 3.0, 0, synced=True, after_batch=after_batch,
+    w = features.window(engine, CFG, batches, 3.0, 0, synced=True, after_batch=after_batch,
                                 recording=False)
     # batch 0 ends at 101.75; spans from 111.75: batches 1 and 2 (1.75 s each)
     assert (w.batches, w.sites, w.span_sites) == (3, 12, 8)
     assert w.spans["segment"] == 2.0 and abs(w.spans["measure.finalize"] - 0.5) < 1e-12
     assert abs(w.t_end - w.span_t0 - 3.5) < 1e-9 and w.calls["segment"] == 3
+
+
+def test_segment_window_counts_the_masks_on_the_host(monkeypatch):
+    """Each batch segmented and its masks copied to the host; a site with
+    no object has failed; the window closes when the batch in flight is on
+    the host."""
+    clock = Clock()
+    engine, batches = fake_features(monkeypatch, clock)
+    w = segment.window(engine, CFG, batches, 2.5, 1, synced=False)
+    # segment 1 s a batch: 101, 102, 103 >= 102.5 -> stop after the third
+    assert (w.batches, w.sites, w.failed) == (3, 12, 0)
+    assert abs((w.t_end - w.t_start) - 3.0) < 1e-9 and w.spans["segment"] == 3.0
+    assert w.sample_input == 1 and w.sample_labels.dtype == "int32" and w.sample_labels.shape == (4, 8, 8)
+    assert w.sample_outputs is w.sample_labels
+
+
+def test_segment_window_fails_empty_and_missing_sites(monkeypatch):
+    clock = Clock()
+    engine, batches = fake_features(monkeypatch, clock)
+    real = engine.segment_batch
+    monkeypatch.setattr(engine, "segment_batch",
+                        lambda images: [lab * 0 for lab in real(images)[:3]], raising=False)
+    w = segment.window(engine, CFG, batches, 0.5, 0, synced=False)
+    # one batch of 4: 3 masks back, all empty
+    assert (w.batches, w.sites, w.failed) == (1, 4, 4)

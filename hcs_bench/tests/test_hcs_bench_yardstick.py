@@ -1,68 +1,16 @@
-"""The yardstick's counts against shapes worked by hand."""
+"""The yardstick's counts against shapes worked by hand (each network's
+FLOPs: ``test_hcs_bench_networks.py``)."""
 
 from __future__ import annotations
-
-import json
-from pathlib import Path
 
 import pytest
 import torch
 
 from hcs_bench import yardstick as ys
 
-BENCH = Path(__file__).resolve().parents[1]
-
 
 def meta(*shape, dtype=torch.float32):
     return torch.empty(shape, dtype=dtype, device="meta")
-
-
-def block(cin, cout, side):
-    """proj 1x1, conv_0 3x3, conv_1..3 3x3, 2 FLOPs a multiply-add"""
-    return 2 * side * side * (cin * cout + cin * cout * 9 + 3 * cout * cout * 9)
-
-
-def test_cpnet_tiny_by_hand():
-    # down 1->2 at 4x4: 2*16*(2 + 18 + 108) = 4096; up 2->2 at 4x4:
-    # 2*16*(4 + 36 + 108) = 4736; head 1x1 2->3: 2*16*6 = 192
-    assert ys.cpnet_conv_flops((2,), 1, 4) == 4096 + 4736 + 192
-
-
-def test_cpnet_published_widths():
-    want = (block(2, 32, 224) + block(32, 64, 112) + block(64, 128, 56) + block(128, 256, 28)
-            + block(64, 32, 224) + block(128, 64, 112) + block(256, 128, 56) + block(256, 256, 28)
-            + 2 * 224 * 224 * 32 * 3)
-    assert ys.cpnet_conv_flops((32, 64, 128, 256), 2, 224) == want
-
-
-def test_cpnet_site_tiles():
-    cp = {"features": [32, 64, 128, 256], "n_channels": 2, "diam_mean": 30.0, "tile": 224,
-          "tile_overlap": 0.1}
-    # 1080 * 30 / 100 = 324: tiles at 0 and 100 on each axis
-    assert ys.tile_starts(324, 224, 0.1) == [0, 100]
-    assert ys.cpnet_site_flops(cp, 100.0, 1080, 1080) == 4 * ys.cpnet_conv_flops((32, 64, 128, 256), 2, 224)
-    assert ys.tile_starts(200, 224, 0.1) == [0]
-    # the nuclei model's diam_mean 17: 1080 * 17 / 100 = 184, one tile
-    nuclei = dict(cp, diam_mean=17.0)
-    assert ys.cpnet_site_flops(nuclei, 100.0, 1080, 1080) == ys.cpnet_conv_flops((32, 64, 128, 256), 2, 224)
-
-
-def test_effnet_tiny_by_hand():
-    ef = {"stem_filters": 8, "head_filters": 32,
-          "stages": [["fused", 1, 3, 1, 8, 1, 0.0], ["mbconv", 2, 3, 2, 16, 1, 0.25]]}
-    # stem 1->8 3x3/2 at 4x4: 1152; fused 8->8 3x3: 9216; expand 8->16 1x1:
-    # 2048; depthwise 16 3x3/2 at 2x2: 576; SE 2*16*2: 64; project 16->16
-    # at 2x2: 1024; head 16->32 at 2x2: 2048
-    macs, n_bytes = ys.effnet_cost(ef, 8, in_ch=1)
-    assert macs == 1152 + 9216 + 2048 + 576 + 64 + 1024 + 2048
-    assert n_bytes == 4 * (128 + 128 + 256 + 64 + 64 + 128) + 4 * 64
-
-
-def test_effnetv2_l_at_480():
-    cfg = json.loads((BENCH / "configs" / "cellpose_nuclei.effnetv2_l.json").read_text())
-    macs, _ = ys.effnet_cost(cfg["effnet"], 480, in_ch=3)
-    # timm lists tf_efficientnetv2_l at 480 as 56.4 GMACs
-    assert 55e9 < macs < 57e9
 
 
 def test_bound():

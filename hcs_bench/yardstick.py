@@ -1,9 +1,10 @@
 """The benchmark's yardstick: the card's published peaks, the least time of
-a piece of work, the published models' operation counts, and the bytes
-each of the port's hand-written kernels needs for a call. Frozen copies of
-``chip_smoke.py``'s arithmetic (``bound``, ``cpnet_conv_flops``,
-``effnet_cost`` and the byte counts of ``check_kernels`` and its helpers),
-so that a change to the program cannot change how it is measured."""
+a piece of work, the tiling that a segmenter's FLOPs a site follow, and the
+bytes each of the port's hand-written kernels needs for a call (each
+network's operation count is in its own module, ``networks/<name>.py``).
+Frozen copies of ``chip_smoke.py``'s arithmetic (``bound`` and the byte
+counts of ``check_kernels`` and its helpers), so that a change to the
+program cannot change how it is measured."""
 
 from __future__ import annotations
 
@@ -25,21 +26,6 @@ def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def cpnet_conv_flops(features: tuple[int, ...], n_channels: int, size: int) -> float:
-    """Forward FLOPs of one size x size tile through CPnet's convolutions,
-    from the layer widths (2 per multiply-add; the style Linear layers and
-    the elementwise work left out). Copy of ``chip_smoke.cpnet_conv_flops``."""
-    nbase = [n_channels, *features]
-    up = [*features, features[-1]]
-
-    def block(cin, cout, side):  # proj 1x1, conv_0 3x3, conv_1..3 3x3
-        return 2 * side * side * (cin * cout * (1 + 9) + 3 * cout * cout * 9)
-
-    flops = sum(block(nbase[n], nbase[n + 1], size >> n) for n in range(len(features)))
-    flops += sum(block(up[n], up[n - 1], size >> (n - 1)) for n in range(1, len(up)))
-    return flops + 2 * size * size * up[0] * 3
-
-
 def tile_starts(size: int, tile: int, overlap: float) -> list[int]:
     """Tile offsets covering [0, size), cellpose's tiling of the rescaled
     field."""
@@ -50,53 +36,6 @@ def tile_starts(size: int, tile: int, overlap: float) -> list[int]:
     if starts[-1] != size - tile:
         starts.append(size - tile)
     return starts
-
-
-def cpnet_site_flops(cp: dict, diameter: float, h: int, w: int) -> float:
-    """CPnet's convolution FLOPs for one h x w site: the site rescaled by
-    diam_mean / diameter and covered by tiles."""
-    scale = cp["diam_mean"] / float(diameter)
-    h1 = max(cp["tile"] // 4, int(round(h * scale)))
-    w1 = max(cp["tile"] // 4, int(round(w * scale)))
-    n = (len(tile_starts(max(h1, cp["tile"]), cp["tile"], cp["tile_overlap"]))
-         * len(tile_starts(max(w1, cp["tile"]), cp["tile"], cp["tile_overlap"])))
-    return n * cpnet_conv_flops(tuple(cp["features"]), cp["n_channels"], cp["tile"])
-
-
-def effnet_cost(ef: dict, size: int, in_ch: int = 1) -> tuple[int, int]:
-    """(multiply-adds, bytes) of one crop through an EfficientNetV2 stage
-    table at size²: every convolution's MACs (depthwise ones per group),
-    the squeeze-excitation products, and the bytes of every convolution's
-    output written once and read once in bf16 plus the f32 input read
-    once. Copy of ``chip_smoke.effnet_cost``."""
-    macs = elems = 0
-    n = size
-
-    def conv(cin, cout, k, s, groups=1):
-        nonlocal n, macs, elems
-        n = -(-n // s)
-        macs += n * n * cout * (cin // groups) * k * k
-        elems += n * n * cout
-
-    conv(in_ch, ef["stem_filters"], 3, 2)
-    cin = ef["stem_filters"]
-    for block, expand, kernel, stride, filters, count, se_ratio in ef["stages"]:
-        for i in range(count):
-            s = stride if i == 0 else 1
-            mid = cin * expand
-            if block == "fused" and expand == 1:
-                conv(cin, filters, kernel, s)
-            elif block == "fused":
-                conv(cin, mid, kernel, s)
-                conv(mid, filters, 1, 1)
-            else:
-                conv(cin, mid, 1, 1)
-                conv(mid, mid, kernel, s, groups=mid)
-                macs += 2 * mid * max(1, int(cin * se_ratio))
-                conv(mid, filters, 1, 1)
-            cin = filters
-    conv(cin, ef["head_filters"], 1, 1)
-    return macs, 4 * elems + 4 * size * size * in_ch
 
 
 # Bytes and operations of one call of each of the port's kernels, from the
