@@ -12,7 +12,12 @@ pipeline is a new module here; it reaches the program only through
 - ``numbers(cfg, images, labels, outputs, ref, seed, ref_labels,
   control=None, detail=None) -> dict``: the check's numbers beyond
   ``labels_px_off`` (``compare.numbers``), each with its limit in
-  ``limits/<cell>.json``."""
+  ``limits/<cell>.json``.
+
+A pipeline may also supply ``prepare(cfg, traffic, batches) -> batches``:
+set-up that its window needs beyond the batches in memory (``job``: the
+sites written to disk), run before the engine is built; what it returns
+goes to the warm batch and the window in their place."""
 
 from __future__ import annotations
 

@@ -115,6 +115,9 @@ def run_cell(spec: dict, seed: int, seconds: float, trace: bool, device, t0: flo
     marks = [("start", time.perf_counter())]
     batches, states = inputs_and_weights(spec, seed, device)
     marks.append(("inputs and weights", time.perf_counter()))
+    if hasattr(pipe, "prepare"):  # inputs the pipeline's window reads from disk, written in set-up
+        batches = pipe.prepare(cfg, traffic, batches)
+        marks.append(("input files", time.perf_counter()))
     engine = program.build_engine(cfg, states, device)
     marks.append(("engine", time.perf_counter()))
     pipe.batch(engine, cfg, batches[0])  # the warm batch: nothing builds inside the window

@@ -2,13 +2,12 @@
 harness's look for a card skipped, the program on its plain forms, the
 check against the reference. Then the timed path broken underneath, once
 for each fault a cell can have, and the control in the program's place:
-``correct`` has to come out false. The same for the ``segment`` pipeline,
-which no cell runs yet, on a spec built here: the first cell's networks
-and traffic, with limits set from the tiny size's readings."""
+``correct`` has to come out false."""
 
 from __future__ import annotations
 
 import json
+import sys
 import time
 from pathlib import Path
 
@@ -18,7 +17,7 @@ import torch
 from hcs_bench import program, run
 from hcs_bench.check import judge
 from hcs_bench.compare import Side, numbers
-from hcs_bench.pipelines import segment
+from hcs_bench.pipelines import job, segment
 from hcs_bench.tests.tiny import tiny
 from hcs_bench.traffic.generator import seed_sequence
 
@@ -29,39 +28,21 @@ CELLS = [w["name"] for w in SPEC["workloads"]]
 SEED = next(s for s in range(2**31, 2**31 + 100) if seed_sequence(s, 1).integers(0, run.SAMPLE_BATCHES) == 1)
 
 
-# The segment pipeline's limits at the tiny size: the program read
-# labels_px_off 0.0009-0.0042 and objects_off 0 on four seeds, the control
-# 0.085-0.43 and 0.11-0.33 (one nucleus of the nine a site: 0.11).
-SEGMENT_LIMITS = {"labels_px_off": 0.04, "objects_off": 0.05}
-# The segment pipeline's rate, which BENCHMARK.json gains with the first
-# cell that runs the pipeline; its bound plays no part on the CPU.
-SEGMENT_RATE = {"name": "segment_sites_per_s", "unit": "sites/s", "better": "higher", "bound": 0.25,
-                "source": "host_clock"}
-
-
-def segment_spec() -> dict:
-    """The first cell's networks and traffic through the ``segment``
-    pipeline at the tiny size, with its end-to-end metrics and the limits
-    above."""
-    spec = tiny(run.load_cell("features.confluent81"))
-    spec["config"]["pipeline"] = "segment"
-    spec["end_to_end"] = [SEGMENT_RATE] + [m for m in SPEC["end_to_end"]
-                                           if m["name"] in ("peak_mem_gib", "setup_s")]
-    spec["per_layer"] = [m for m in SPEC["per_layer"] if m["name"] == "segment.s_per_site.features"]
-    spec["limits"] = dict(SEGMENT_LIMITS)
-    return spec
+JOB = "features.job_lzw_csv"
+# the program's module that runs a job, whose calls the faults replace
+JOB_MODULE = sys.modules[program.resolve(job.JOB).__module__]
 
 
 def spec_of(cell: str) -> dict:
-    """A cell's spec at the tiny size; ``segment``: ``segment_spec()``."""
-    return segment_spec() if cell == "segment" else tiny(run.load_cell(cell))
+    """A cell's spec at the tiny size."""
+    return tiny(run.load_cell(cell))
 
 
 def dry(cell: str, trace: bool = False, seconds: float = 0.1) -> dict:
     return run.run_cell(spec_of(cell), SEED, seconds, trace, CPU, t0=time.perf_counter())
 
 
-@pytest.mark.parametrize("cell", CELLS + ["segment"])
+@pytest.mark.parametrize("cell", CELLS)
 def test_cell_runs_and_is_correct(cell):
     res = dry(cell)
     assert res["correct"], res["checked"]
@@ -72,14 +53,18 @@ def test_cell_runs_and_is_correct(cell):
     assert list(res["checked"]) == list(spec_of(cell)["limits"])
 
 
-@pytest.mark.parametrize("cell", ["features.confluent81", "embed.confluent81", "segment"])
+@pytest.mark.parametrize("cell", CELLS)
 def test_traced_run_reads_its_spans(cell):
     res = dry(cell, trace=True)
     assert res["correct"]
     names = [m["name"] for m in spec_of(cell)["per_layer"]]
     # on the CPU only the benchmark's spans can be read; the trace's
     # metrics need the card's trace and are left out
-    assert any(n.startswith("segment.s_per_site") for n in res["metrics"])
+    if cell == JOB:
+        assert {"job.read.s_per_site", "job.write.s_per_site", "job.sites_per_s"} <= set(res["metrics"])
+        assert all(v["value"] > 0 for v in res["metrics"].values())
+    else:
+        assert any(n.startswith("segment.s_per_site") for n in res["metrics"])
     assert set(res["metrics"]) <= set(names)
 
 
@@ -99,9 +84,11 @@ def stale_labels(monkeypatch):
 
 def half_batch(monkeypatch):
     """Half of the batch left out: only the first half of the sites' results
-    (tables, embeddings, masks on the host) come back."""
+    (tables, also inside a job; embeddings; masks on the host) come back."""
     finalize, process = program.measure_site_batch_finalize, program.SegmentEmbedEngine.process_site_batch
     monkeypatch.setattr(program, "measure_site_batch_finalize", lambda h: finalize(h)[: h.n_sites // 2])
+    monkeypatch.setattr(JOB_MODULE, "measure_site_batch_finalize",
+                        lambda h, **kw: finalize(h, **kw)[: h.n_sites // 2])
     host = segment.host_labels
     monkeypatch.setattr(segment, "host_labels", lambda labels: host(labels)[: len(labels) // 2])
 
@@ -114,8 +101,8 @@ def half_batch(monkeypatch):
 
 def altered_answer(monkeypatch):
     """An answer altered where it is produced: the first site's nucleus
-    areas each one pixel more, its embeddings with their signs flipped, or
-    its first object's mask erased on the host."""
+    areas each one pixel more (also inside a job), its embeddings with their
+    signs flipped, or its first object's mask erased on the host."""
     finalize, process = program.measure_site_batch_finalize, program.SegmentEmbedEngine.process_site_batch
     host = segment.host_labels
 
@@ -124,8 +111,8 @@ def altered_answer(monkeypatch):
         out[0][out[0] == 1] = 0
         return out
 
-    def altered_tables(h):
-        out = finalize(h)
+    def altered_tables(h, **kw):
+        out = finalize(h, **kw)
         out[0]["Nuclei"]["AreaShape_Area"] += 1
         return out
 
@@ -136,19 +123,20 @@ def altered_answer(monkeypatch):
         return out
 
     monkeypatch.setattr(program, "measure_site_batch_finalize", altered_tables)
+    monkeypatch.setattr(JOB_MODULE, "measure_site_batch_finalize", altered_tables)
     monkeypatch.setattr(program.SegmentEmbedEngine, "process_site_batch", altered_embeddings)
     monkeypatch.setattr(segment, "host_labels", altered_masks)
 
 
 @pytest.mark.parametrize("fault", [stale_labels, half_batch, altered_answer], ids=lambda f: f.__name__)
-@pytest.mark.parametrize("cell", ["features.confluent81", "embed.confluent81", "segment"])
+@pytest.mark.parametrize("cell", CELLS)
 def test_fault_is_not_correct(cell, fault, monkeypatch):
     fault(monkeypatch)
     res = dry(cell)
     assert not res["correct"], res["checked"]
 
 
-@pytest.mark.parametrize("cell", ["features.confluent81", "embed.confluent81", "segment"])
+@pytest.mark.parametrize("cell", CELLS)
 def test_control_is_not_correct(cell):
     """The control (the reference in the next lower precision, in the
     program's place) fails the cell's limits, at the tiny size."""

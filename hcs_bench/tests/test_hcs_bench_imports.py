@@ -113,3 +113,13 @@ def test_cpnet_shares_no_code_with_the_plain_copy():
     to full float32 (``plain/device.full_f32``)."""
     used = module_imports(BENCH / "networks" / "cpnet.py")
     assert {m for m in used if m.startswith("hcs_bench.reference.plain")} <= {"hcs_bench.reference.plain.device"}
+
+
+def test_job_reaches_the_program_by_dotted_path():
+    """The job pipeline names the program's job and its stage timer by
+    dotted paths into the port, which ``program.resolve`` finds."""
+    from hcs_bench import program
+    from hcs_bench.pipelines import job
+
+    for path in (job.JOB, job.TIMER):
+        assert path.startswith("saguaro_tpu_torch.") and callable(program.resolve(path))

@@ -148,3 +148,21 @@ def test_layer_names_consistent():
     perf = (ROOT / "PERF.md").read_text()
     for layer in layers:
         assert f"`{layer}`" in perf
+
+
+def pipeline_of(cell: dict) -> str:
+    conf = next(c for c in SPEC["configs"] if c["name"] == cell["config"])
+    return json.loads((ROOT / conf["file"]).read_text())["pipeline"]
+
+
+@pytest.mark.parametrize("cell", [w for w in SPEC["workloads"] if pipeline_of(w) == "job"],
+                         ids=lambda c: c["name"])
+def test_job_traffic_makes_whole_jobs(cell):
+    """A cell of the ``job`` pipeline: its traffic's sites are one job of
+    its configuration's ``job_sites``, with a timepoint; its batches are the
+    engine's site batches."""
+    body = json.loads((ROOT / next(c["file"] for c in SPEC["configs"] if c["name"] == cell["config"])).read_text())
+    traffic = json.loads((BENCH / "traffic" / f"{cell['traffic']}.json").read_text())
+    assert traffic["distinct_batches"] * traffic["sites_per_batch"] == body["job_sites"]
+    assert isinstance(traffic["timepoint"], str)
+    assert traffic["sites_per_batch"] == body["engine"]["site_batch"]
